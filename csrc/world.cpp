@@ -1,6 +1,6 @@
 // Native ground-truth world simulator (C++), role-equivalent to the
 // reference's C++ env layer (src/PointMassEnv.cpp + MuJoCo 2.00): the
-// host-side "real world" the TPU controller is closed against.
+// host-side "real world" the JAX controller is closed against.
 //
 // Physics is the MuJoCo-equivalent decoupled per-axis linear ODE
 //     (m + armature) * qdd = gear * clamp(u, +-ctrl_range) - damping * qd

@@ -8,11 +8,12 @@ nothing in the package is edited:
      extensions (the ``Dynamics`` protocol + the ``Cost`` protocol). These
      alone already give a working controller on ANY backend='scan' device.
   2. ``BicycleFamily`` — the fused-kernel twin of the pair, registered with
-     ``@register_family``: ~60 lines of tile math that teach the single-pass
-     Pallas kernel (and kernels A/B, the fleet kernel, the sharded path, the
-     noise-dump kernel — all shared machinery) to integrate this model
-     on-chip. After registration, backend='auto' resolves the pair to the
-     fused path on TPU exactly like the eight built-in families.
+     ``@register_family``: ~40 lines over per-rollout vectors that teach the
+     fused GPU kernels (ops/fused_rollout.py: the rollout kernel, the
+     weighted-update kernel, fleets and meshes — all shared machinery) to
+     integrate this model. After registration, backend='auto' resolves the
+     pair to the fused kernels on a GPU exactly like the eight built-in
+     families.
 
 The model: rear-axle kinematic bicycle with velocity drag,
 
@@ -22,7 +23,7 @@ The model: rear-axle kinematic bicycle with velocity drag,
 state ``x = [px, py, θ, v]``, action ``u = [a, δ]`` (acceleration, steer
 angle), RK2-midpoint integration — the kernel's ``step`` mirrors
 ``BicycleDynamics.step`` expression-for-expression, which is what makes the
-host-twin oracle test (tests/test_custom_family.py) exact.
+kernels agree with the scan reference (tests/test_custom_family.py).
 
 Run:  python examples/custom_family.py [--steps 120] [--samples 1024]
 """
@@ -62,9 +63,9 @@ class BicycleDynamics:
     def _deriv(self, x, u):
         th, v = x[..., 2], x[..., 3]
         acc, steer = u[..., 0], u[..., 1]
-        # tan via sin/cos so the Pallas twin can use the identical expression
-        # (Mosaic has sin/cos/divide; keeping both sides token-identical is
-        # what makes the fused kernel bit-faithful to this model)
+        # tan via sin/cos so the kernel twin uses the identical expression
+        # (keeping both sides token-identical keeps the fused kernel
+        # faithful to this model to f32 rounding)
         tan_d = jnp.sin(steer) / jnp.cos(steer)
         return jnp.stack(
             [
@@ -116,56 +117,31 @@ class BicycleWaypointCost:
 
 @register_family
 class BicycleFamily:
-    """Fused Pallas family for (BicycleDynamics, BicycleWaypointCost).
+    """Fused-kernel family for (BicycleDynamics, BicycleWaypointCost).
 
-    A=2 action dims → G=4 rollout groups per (8, KB) tile. The two action
-    rows of each group are duplicated onto both rows (the built-in unicycle
-    family's ``pair_dup`` pattern) and the state cost is counted once per
-    group via the ``even`` row mask — the shared per-group sublane reduction
-    sums each group's A rows.
+    The kernels run one rollout per lane of a ``(plan.block,)`` vector: the
+    state is a tuple of such vectors, the two effective actions arrive as a
+    list of them, and ``p(i)`` reads parameter ``i`` of this robot's row.
     """
 
-    name = "bicycle-demo"
-    NP = 13  # sigma, inv_s, w_pos, w_vel, gx, gy, v_ref, 1/L, drag, x0 (4)
-    _WPOS, _WVEL, _GX, _GY, _VREF, _INVL, _DRAG, _X0 = 2, 3, 4, 5, 6, 7, 8, 9
+    name = "bicycle-demo"  # parameters: w_pos, w_vel, gx, gy, v_ref, 1/L, drag, x0 (4)
 
     @staticmethod
     def supports(dyn, cost) -> bool:
         return isinstance(dyn, BicycleDynamics) and type(cost) is BicycleWaypointCost
 
-    @classmethod
-    def pack(cls, dyn, cost, x0, sigma, plan, tileA):
+    @staticmethod
+    def pack_planar(dyn, cost, x0):
         x0 = jnp.broadcast_to(x0, (4,)).astype(jnp.float32)
-        w = cost.w.astype(jnp.float32)
-        g = cost.goal.astype(jnp.float32)
-        return jnp.stack(
-            [
-                tileA(sigma), tileA(cost.inv_s),
-                tileA(w[0]), tileA(w[1]), tileA(g[0]), tileA(g[1]),
-                tileA(cost.v_ref), tileA(1.0 / dyn.wheelbase), tileA(dyn.drag),
-                tileA(x0[0]), tileA(x0[1]), tileA(x0[2]), tileA(x0[3]),
-            ],
-            axis=1,
-        )  # (SUB, NP)
+        return jnp.concatenate([
+            cost.w.astype(jnp.float32), cost.goal.astype(jnp.float32),
+            jnp.stack([cost.v_ref, 1.0 / dyn.wheelbase, dyn.drag]).astype(jnp.float32),
+            x0,
+        ])
 
-    @classmethod
-    def build(cls, p_ref, scal_ref, plan):
-        SUB, G, KB = 8, plan.G, plan.KB
-        dt = scal_ref[0, 0]
-        col = lambda i: p_ref[:, i:i + 1]  # noqa: E731
-        w_pos, w_vel = col(cls._WPOS), col(cls._WVEL)
-        gx, gy, v_ref = col(cls._GX), col(cls._GY), col(cls._VREF)
-        inv_l, drag = col(cls._INVL), col(cls._DRAG)
-        row = jax.lax.broadcasted_iota(jnp.int32, (SUB, KB), 0)
-        even = (row % 2 == 0).astype(jnp.float32)
-
-        def pair_dup(u_eff, off):
-            rows = []
-            for g in range(G):
-                r = u_eff[g * 2 + off:g * 2 + off + 1]
-                rows.append(r)
-                rows.append(r)
-            return jnp.concatenate(rows, axis=0)
+    @staticmethod
+    def build_planar(p, dt, plan):
+        w_pos, w_vel, gx, gy, v_ref, inv_l, drag = (p(i) for i in range(7))
 
         def deriv(s, acc, tan_d):
             px, py, th, v = s
@@ -179,16 +155,15 @@ class BicycleFamily:
         def state_cost(s):
             px, py, th, v = s
             dx, dy, dv = px - gx, py - gy, v - v_ref
-            return even * (w_pos * (dx * dx + dy * dy) + w_vel * dv * dv)
+            return w_pos * (dx * dx + dy * dy) + w_vel * dv * dv
 
         def carry0():
             return tuple(
-                jnp.broadcast_to(col(cls._X0 + i), (SUB, KB)) for i in range(4)
+                jnp.broadcast_to(p(7 + i), (plan.block,)) for i in range(4)
             )
 
-        def step(state, u_eff):
-            acc = pair_dup(u_eff, 0)
-            steer = pair_dup(u_eff, 1)
+        def step(state, acts):
+            acc, steer = acts
             tan_d = jnp.sin(steer) / jnp.cos(steer)
             # RK2 midpoint — mirrors BicycleDynamics.step exactly
             d1 = deriv(state, acc, tan_d)
@@ -197,10 +172,7 @@ class BicycleFamily:
             state = tuple(state[i] + dt * d2[i] for i in range(4))
             return state, state_cost(state)
 
-        def final(state):
-            return state_cost(state)
-
-        return carry0, step, final
+        return carry0, step, state_cost
 
 
 # ---------------------------------------------------------------------------

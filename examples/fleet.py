@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Multi-robot fleet control: B independent point-mass robots, each with its
 own goal, all solved in ONE jitted program per control step
-(`BatchedMPPIController` — vmapped scan solve, or the fleet fused Pallas
-kernel on TPU where the robot index is a kernel grid axis; `auto` picks per
-platform/family). With B·K rollouts per step the accelerator stays
+(`BatchedMPPIController` — vmapped scan solve, or the fused Pallas
+kernels on a GPU where the robot index is a kernel grid axis; `auto` picks
+per platform/family). With B·K rollouts per step the accelerator stays
 saturated even at modest per-robot K.
 
 Run:  python examples/fleet.py [-n 8] [--steps 120]

@@ -1,10 +1,9 @@
 """Batched multi-robot MPPI: one jitted program solves B independent control
 problems at once via `jax.vmap`.
 
-No reference analog (the reference is strictly one controller, one robot) —
-this is a TPU-native extension: a fleet of B robots at K samples each gives
-the accelerator a (B·K)-wide batch, which is exactly how to keep the VPU/MXU
-fed when a single robot's K is modest. Dynamics and cost are shared; goals
+No reference analog (the reference is strictly one controller, one robot):
+a fleet of B robots at K samples each gives the accelerator a (B·K)-wide
+batch, which keeps it fed when a single robot's K is modest. Dynamics and cost are shared; goals
 may differ per robot (the common fleet case) by vmapping over the cost's
 goal leaf.
 
@@ -12,12 +11,11 @@ Two fleet execution modes:
 
 - **scan** — `jax.vmap` over the scan solve: composes trivially, works for
   ANY dynamics/cost (including MLP/hybrid models).
-- **pallas** — the fleet FUSED kernel (`ops.pallas_rollout.
-  pallas_fleet_solve_core`): `vmap` cannot batch the Pallas kernels (their
-  grid axis 0 is the K-tile index and would mis-seed), so the fleet is a
-  grid axis instead — grid (R, tiles), with per-robot U/x0/goal/seed blocks
-  selected by BlockSpec index maps. One kernel launch solves the whole
-  fleet with zero HBM noise traffic. `auto` picks it on TPU whenever a
+- **pallas** — the fused kernels of ops/fused_rollout.py with the robot as
+  grid axis 0: grid (R, blocks), each block reading its robot's key, U and
+  parameter row (x0, goal). Kernel A writes every robot's costs, XLA takes
+  each robot's softmin, kernel B reduces every robot's ΔU — the R·T·K·a
+  noise tensor is never materialized. `auto` picks it on a GPU whenever a
   fused family covers the (dynamics, cost) pair.
 """
 
@@ -86,7 +84,6 @@ class BatchedMPPIController(MPPIController):
         *,
         goals: jax.Array | None = None,  # (B, s) per-robot goals (optional)
         rollout_backend: str = "auto",
-        testmode: bool = False,
         sampler: str = "auto",
     ) -> None:
         # Fleet sampler resolution: the scan fleet is `vmap` over per-robot
@@ -99,8 +96,8 @@ class BatchedMPPIController(MPPIController):
         # sampler="erfinv" (tested in test_batched/test_fleet_sharded).
         # Pass sampler="rbg-boxmuller" explicitly to trade that invariant
         # for sampling speed (still deterministic, just not
-        # robot-decomposable). Pallas fleet mode samples on-chip per robot
-        # and keeps decomposability regardless.
+        # robot-decomposable). The pallas fleet draws each robot's noise
+        # from its own key in-kernel and keeps decomposability regardless.
         if sampler == "auto":
             from mppi_gpu_tpu.controller import resolve_sampler
 
@@ -109,7 +106,7 @@ class BatchedMPPIController(MPPIController):
                 sampler = "erfinv"
         super().__init__(
             cfg, dynamics, cost, rollout_backend=rollout_backend,
-            testmode=testmode, sampler=sampler,
+            sampler=sampler,
         )
         self.n_robots = n_robots
 
@@ -124,7 +121,7 @@ class BatchedMPPIController(MPPIController):
         self._cost_axes = cost_axes  # consumed by ShardedFleetController
 
         if self.rollout_backend in ("pallas", "pallas-interpret"):
-            self._solve_batch_fn = self._build_pallas_fleet(cfg, cost_axes, testmode)
+            self._solve_batch_fn = self._build_pallas_fleet(cfg, cost_axes)
         else:
             solve = partial(
                 mppi_solve, K=cfg.samples, clamp=cfg.clamp_action,
@@ -140,25 +137,28 @@ class BatchedMPPIController(MPPIController):
         # the robot axis, each shard solving its R/n robots locally
         self._solve_batch = jax.jit(self._solve_batch_fn)
 
-    def _build_pallas_fleet(self, cfg: MPPIConfig, cost_axes, testmode: bool):
-        """Whole-fleet solve through the fleet fused kernel: one launch
-        computes every robot's rollout costs AND ΔU; only the tiny
-        per-robot softmin diagnostics + clamp/shift tail run in XLA.
-        Returned unjitted (the caller jits / shard_maps it)."""
-        from mppi_gpu_tpu.ops import pallas_rollout as pr
+    def _build_pallas_fleet(self, cfg: MPPIConfig, cost_axes):
+        """Whole-fleet solve through the fused kernels with the robot as a
+        grid axis; only the per-robot softmin and the clamp/shift tail run
+        in XLA. Returned unjitted (the caller jits / shard_maps it)."""
+        from mppi_gpu_tpu.ops import fused_rollout as fr
 
-        pr.check_supported(self.dynamics, self.cost)
-        K = cfg.samples
+        fr.family_for(self.dynamics, self.cost)  # TypeError if no family fuses it
+        K, T, A = cfg.samples, cfg.horizon, cfg.action_dim
         interpret = self.rollout_backend == "pallas-interpret"
 
         def solve_fleet(dyn, cost, xs, Us, keys, sigma, lambda_, max_a):
+            plan = fr.plan_for(
+                dyn, cost, K, T, A, R=xs.shape[0], antithetic=cfg.antithetic,
+                ou_beta=cfg.noise_beta,
+            )
+            rows = fr.pack_rows(dyn, cost, xs, sigma, plan, cost_axes)
+
             def core_unew(Us, keys_it):
-                S, dU = pr.pallas_fleet_solve_core(
-                    dyn, cost, xs, Us, keys_it, sigma, lambda_,
-                    K=K, antithetic=cfg.antithetic, ou_beta=cfg.noise_beta,
-                    testmode=testmode, interpret=interpret, cost_axes=cost_axes,
-                )
-                u_new = Us + dU
+                words = fr.robot_words(keys_it)
+                S = fr.fused_costs(words, Us, rows, plan, interpret=interpret)
+                w = jax.vmap(lambda s: softmin_weights(s, lambda_).weights)(S)
+                u_new = Us + fr.fused_update(words, rows, w, plan, interpret=interpret)
                 if cfg.clamp_action:
                     u_new = jnp.clip(u_new, -max_a, max_a)
                 return S, u_new
@@ -177,9 +177,8 @@ class BatchedMPPIController(MPPIController):
             S, u_new = core_unew(Us, keys)
 
             def tail(S_r, u_new_r):
-                # β/η/weights re-derived from S for SolveInfo parity with the
-                # scan fleet; DCE removes them when the caller only consumes
-                # action/u_next (same trick as the single-robot fused path)
+                # β/η/weights for SolveInfo parity with the scan fleet (XLA
+                # shares them with the solve's own softmin)
                 sm = softmin_weights(S_r, lambda_)
                 return SolveResult(
                     action=u_new_r[0],

@@ -5,12 +5,12 @@ with host synchronization between phases (reference src/point_mass.cu:129-203:
 sim → beta ladder → exp → nabla ladder → weights → per-t update_act ladder →
 shift). Here the entire phase sequence is a single pure function under `jit`:
 XLA fuses the softmin pipeline, the weighted-noise update is one K×(T·A)
-contraction (MXU-shaped — this was the reference's flagged bottleneck,
+contraction (this was the reference's flagged bottleneck,
 src/point_mass.cu:187), and nothing round-trips to the host.
 
 Phase mapping (reference → here):
     sim_gpu_kernel_      → ops.rollout.rollout_costs (lax.scan over T) or the
-                           fused Pallas kernel (ops.pallas_rollout)
+                           fused kernels (ops.fused_rollout)
     beta/exp/nabla/weights → ops.softmin.softmin_weights
     update_act + copy_act  → one einsum  U += Σ_k w_k ε_k
     (new, wired)           → clamp to ±max_a
@@ -29,6 +29,7 @@ import jax.numpy as jnp
 from mppi_gpu_tpu.config import MPPIConfig
 from mppi_gpu_tpu.models.base import Dynamics
 from mppi_gpu_tpu.ops.cost import Cost, make_cost
+from mppi_gpu_tpu.ops.noise import noise_tensor
 from mppi_gpu_tpu.ops.rollout import (
     LANE,
     rollout_costs,
@@ -86,21 +87,10 @@ def _standard_normal_tiled(
 ) -> jax.Array:
     """Standard normals for the tiled sampler.
 
-    Default (``sampler="rbg"``): raw bits from the TPU-native XLA
-    `RngBitGenerator` (the jax ``rbg`` key impl) through jax.random.normal's
-    erfinv inverse-CDF. The round-5 phase probe showed WHY the bit source
-    matters: at bench geometry (6×10⁷ normals) threefry sampling was 3.5 ms
-    of the scan backend's 4.7 ms solve. Measured COMPOSED with the rollout
-    scan (gen+rollout, K=10⁵ T=200 LTI, v5e — composition is what counts;
-    standalone slice-consumer probes mislead): threefry+erfinv 4.97 ms,
-    rbg+Box-Muller lane-concat 4.20 (the half-lane concat wrecks the
-    consumer's layout), rbg+BM sublane-concat 3.20, **rbg+erfinv 2.35** —
-    concat-free elementwise erfinv fuses cleanly into the consumer while
-    RngBitGenerator makes the bits ~free. (Removing ε's HBM passes instead
-    was the measured-NEGATIVE alternative: regenerate-in-scan 6.4 ms,
-    emit-from-scan 8.2 ms vs the baseline 4.7 — per-step in-scan generation
-    costs far more than the ~0.9 ms of HBM traffic it saves;
-    docs/kernels.md.)
+    Default (``sampler="rbg"``): raw bits from XLA's `RngBitGenerator`
+    (the jax ``rbg`` key impl) through jax.random.normal's erfinv
+    inverse-CDF — elementwise, so it fuses into its consumer, with the bits
+    nearly free. Which sampler is fastest on the GPU is not measured yet.
 
     The incoming threefry key is deterministically widened to an rbg key
     (its two words tiled to four), so callers keep plain `jax.random.key`
@@ -121,9 +111,8 @@ def _standard_normal_tiled(
     ``sampler="erfinv"``: jax.random.normal on the threefry key (bit-stable
     across XLA versions, unlike RngBitGenerator's stream, and vmap-exact);
     ``"rbg-boxmuller"``: Box-Muller over rbg raw bits (lane-axis concat —
-    fastest standalone, loses composed); ``"boxmuller"``: Box-Muller over
-    threefry uniforms (measured ~20 % slower than erfinv — kept as the
-    documented negative result). All are exact samplers (Box-Muller's
+    concatenates halves); ``"boxmuller"``: Box-Muller over threefry
+    uniforms. All are exact samplers (Box-Muller's
     radius caps at √(2·24·ln2) ≈ 5.8σ from the 24-bit uniform); the choice
     only changes WHICH normals a key maps to, and sample_noise's flat view
     follows automatically."""
@@ -159,10 +148,9 @@ def sample_noise_tiled(
 ) -> tuple[jax.Array, jax.Array]:
     """ε ~ N(0, diag(σ²)) in the production tiled layout: returns
     ``(eps (T, a, R, 128), valid (R, 128) bool)`` with R a multiple of 8 —
-    rollouts live on the (sublane, lane) tile axes, so the horizon scan runs
-    on full VPU tiles (see ops/rollout.py). K is padded up to whole tiles;
-    `valid` marks the real rollouts (padded ones get cost=PAD_COST so their
-    softmin weight underflows to exactly 0).
+    rollouts live on the two minor axes (see ops/rollout.py). K is padded
+    up to whole tiles; `valid` marks the real rollouts (padded ones get
+    cost=PAD_COST so their softmin weight underflows to exactly 0).
 
     Counter-based threefry: fully deterministic given the key — replaces the
     reference's stateful cuRAND per-thread states (src/point_mass.cu:780)
@@ -215,7 +203,7 @@ def sample_noise(
 ) -> jax.Array:
     """The (T, K, a) rollout-rank view of the EXACT noise stream the tiled
     scan solve consumes for these arguments (the debug/oracle form — the
-    scan-backend analog of ops.pallas_rollout.pallas_noise_dump). Rollout k
+    scan-backend analog of ops.noise.noise_tensor). Rollout k
     is tile row ``k // 128``, lane ``k % 128`` of :func:`sample_noise_tiled`;
     under `antithetic` the second K/2 rollouts are the exact mirrors of the
     first."""
@@ -255,7 +243,9 @@ def solve_from_costs(
     # U[t] += Σ_k w_k ε_k[t]  — the reference's per-t reduction ladder
     # (update_act_kernel + sum_red_adim, src/point_mass.cu:668-741, 828-926)
     # collapsed into one contraction over K.
-    dU = jnp.einsum("tka,k->ta", eps, sm.weights)
+    dU = jnp.einsum(
+        "tka,k->ta", eps, sm.weights, precision=jax.lax.Precision.HIGHEST
+    )
     if axis_name is not None:
         dU = jax.lax.psum(dU, axis_name)
     u_new = U + dU
@@ -285,7 +275,11 @@ def solve_from_costs_tiled(
     weights underflow to exactly 0, and SolveInfo exposes only the K real
     rollouts (in the same order as the flat view :func:`sample_noise`)."""
     sm = softmin_weights(S.reshape(-1), lambda_, axis_name=axis_name)
-    dU = jnp.einsum("tark,rk->ta", eps, sm.weights.reshape(S.shape))
+    # a matrix-vector product: HIGHEST keeps f32 (not TF32) at no cost
+    dU = jnp.einsum(
+        "tark,rk->ta", eps, sm.weights.reshape(S.shape),
+        precision=jax.lax.Precision.HIGHEST,
+    )
     if axis_name is not None:
         dU = jax.lax.psum(dU, axis_name)
     u_new = U + dU
@@ -344,15 +338,14 @@ def mppi_solve(
     rollout_backend: str = "scan",
     antithetic: bool = False,
     ou_beta: float = 0.0,
-    testmode: bool = False,
     opt_iters: int = 1,
     sampler: str = "auto",
 ) -> SolveResult:
     """One full MPPI solve: sample ε, roll out K trajectories over T, softmin
     update, clamp, shift. Pure and jittable; `K` is per-shard when running
-    under `shard_map` with `axis_name` set. `testmode` (pallas backends only)
-    swaps the on-chip PRNG for the deterministic host-replicable pseudo-noise
-    so the full kernel math is verifiable on CPU.
+    under `shard_map` with `axis_name` set. The pallas backends draw ε from
+    the counter-based generator (ops/noise.py) inside the kernels; the scan
+    backend samples with `sampler`.
 
     `opt_iters > 1` is ITERATED MPPI: the softmin update is applied to the
     nominal sequence `opt_iters` times (fresh noise per iteration — keys
@@ -366,7 +359,7 @@ def mppi_solve(
         solve_once = partial(
             mppi_solve, dyn, cost, x0, K=K, clamp=clamp, axis_name=axis_name,
             rollout_backend=rollout_backend, antithetic=antithetic,
-            ou_beta=ou_beta, testmode=testmode, opt_iters=1, sampler=sampler,
+            ou_beta=ou_beta, opt_iters=1, sampler=sampler,
         )
 
         def body(U, j):
@@ -409,7 +402,6 @@ def mppi_solve(
             K=K, clamp=clamp, axis_name=axis_name, antithetic=antithetic,
             ou_beta=ou_beta,
             interpret=rollout_backend == "pallas-interpret",
-            testmode=testmode,
         )
     raise ValueError(f"unknown rollout backend '{rollout_backend}'")
 
@@ -430,95 +422,25 @@ def pallas_solve(
     antithetic: bool = False,
     ou_beta: float = 0.0,
     interpret: bool = False,
-    testmode: bool = False,
 ) -> SolveResult:
     """Fused-kernel MPPI solve: the (T, K, a) noise tensor never exists in
-    HBM. Kernel A rolls out and returns only costs; the softmin runs in XLA
-    (with pmin/psum across the mesh when sharded); kernel B regenerates the
-    identical noise stream and reduces ΔU on-chip. See ops/pallas_rollout.py."""
-    from mppi_gpu_tpu.ops import pallas_rollout as pr
+    device memory. Kernel A rolls out and returns only costs; the softmin
+    runs in XLA (with pmin/psum across the mesh when sharded); kernel B
+    regenerates the same noise and reduces ΔU per block. See
+    ops/fused_rollout.py."""
+    from mppi_gpu_tpu.ops import fused_rollout as fr
 
-    pr.check_supported(dyn, cost)
-    if axis_name is None and not interpret:
-        # single-chip: the ENTIRE solve core is one kernel (rollout tiles →
-        # in-VMEM softmin → update tiles); no XLA glue or dispatch between
-        # phases. info's β/η/weights are re-derived lazily from S below and
-        # DCE away when the caller only consumes action/u_next.
-        S_pad, dU = pr.pallas_fused_solve_core(
-            dyn, cost, x0, U, key, sigma, lambda_,
-            K=K, antithetic=antithetic, ou_beta=ou_beta, testmode=testmode,
-        )
-        sm = softmin_weights(S_pad, lambda_)
-    else:
-        import os as _os
-
-        fam_name = pr.family_for(dyn, cost)
-        plan = pr.make_plan(
-            K, U.shape[0], U.shape[1], antithetic, ou_beta, testmode,
-            family=fam_name,
-            extra=pr._plan_extra(pr.FAMILIES[fam_name], cost),
-        )
-        if (
-            (plan.onepass or plan.planar)
-            # Under the Mosaic interpreter the one-pass kernel deadlocks
-            # when ≥4 shard_map device threads interpret concurrently (each
-            # thread blocks inside an io_callback — np.array(val) waits on a
-            # value whose computation needs the same starved thread pool).
-            # A 2-device mesh leaves enough slack and is reliable, so the
-            # composed one-pass sharded program IS executable off-TPU:
-            # MPPI_SHARDED_ONEPASS_INTERPRET=1 opts in (used by
-            # tests/_sharded_pallas_check.py's onepass-* scenarios on n=2
-            # meshes in fresh subprocesses). Default interpret dispatch
-            # stays two-kernel so the 8-device virtual-mesh tests keep
-            # working; the real-TPU mesh path is additionally gated by
-            # tests/_pallas_tpu_check.py.
-            and (
-                not interpret
-                or _os.environ.get("MPPI_SHARDED_ONEPASS_INTERPRET", "0") == "1"
-            )
-            and _os.environ.get("MPPI_SHARDED_ONEPASS", "1") != "0"
-        ):
-            # sharded ONE-PASS: each device runs the single-launch fused
-            # core unnormalized (local β, η, ΔŨ) — the online softmin is
-            # associative, so devices combine exactly like the kernel's
-            # K-tiles: β = pmin(β_d), η = psum(f_d·η_d),
-            # ΔU = psum(f_d·ΔŨ_d)/η with f_d = exp((β−β_d)/λ) ≤ 1. The
-            # same three all-reduces as the two-kernel path, at the
-            # one-pass per-chip cost (4.2 → ~1.5 ms/chip at K=10⁵).
-            S_pad, dU_raw, beta_l, eta_l = pr.pallas_fused_solve_core(
-                dyn, cost, x0, U, key, sigma, lambda_,
-                K=K, antithetic=antithetic, ou_beta=ou_beta,
-                testmode=testmode, interpret=interpret, normalize=False,
-            )
-            beta = beta_l if axis_name is None else jax.lax.pmin(beta_l, axis_name)
-            f = jnp.exp((beta - beta_l) / lambda_)
-            eta = f * eta_l
-            dU = f * dU_raw
-            if axis_name is not None:
-                eta = jax.lax.psum(eta, axis_name)
-                dU = jax.lax.psum(dU, axis_name)
-            dU = dU / eta
-            from mppi_gpu_tpu.ops.softmin import SoftminResult
-
-            sm = SoftminResult(
-                weights=jnp.exp(-(S_pad - beta) / lambda_) / eta,
-                beta=beta, eta=eta,
-            )
-        else:
-            packed = pr.pack_inputs(dyn, cost, x0, U, key, sigma, plan, ou_beta=ou_beta)
-            S_pad = pr.pallas_rollout_costs(
-                dyn, cost, x0, U, key, sigma, K=K, antithetic=antithetic,
-                ou_beta=ou_beta, interpret=interpret, packed=packed, testmode=testmode,
-            )
-            # Padded rollouts carry cost=BIG: exp(-(BIG-β)/λ) underflows to
-            # exactly 0, so they drop out of η and ΔU without any masking here.
-            sm = softmin_weights(S_pad, lambda_, axis_name=axis_name)
-            dU = pr.pallas_weighted_update(
-                dyn, cost, x0, U, key, sigma, sm.weights, K=K, antithetic=antithetic,
-                ou_beta=ou_beta, interpret=interpret, packed=packed, testmode=testmode,
-            )
-            if axis_name is not None:
-                dU = jax.lax.psum(dU, axis_name)
+    T, a = U.shape
+    plan = fr.plan_for(dyn, cost, K, T, a, antithetic=antithetic, ou_beta=ou_beta)
+    words = fr.robot_words(key[None])
+    rows = fr.pack_rows(dyn, cost, x0[None], sigma, plan)
+    S_pad = fr.fused_costs(words, U[None], rows, plan, interpret=interpret)[0]
+    # padded rollouts carry cost +inf: exp(-(inf-β)/λ) is exactly 0, so they
+    # drop out of η and ΔU without masking here
+    sm = softmin_weights(S_pad, lambda_, axis_name=axis_name)
+    dU = fr.fused_update(words, rows, sm.weights[None], plan, interpret=interpret)[0]
+    if axis_name is not None:
+        dU = jax.lax.psum(dU, axis_name)
     u_new = U + dU
     if clamp:
         u_new = jnp.clip(u_new, -max_a, max_a)
@@ -535,22 +457,22 @@ def pallas_solve(
 def resolve_backend(
     requested: str, dyn: Dynamics, cost: Cost, *, platform: str | None = None
 ) -> str:
-    """'auto' → the fused Pallas kernels on TPU when some fused family covers
-    the (model, cost) pair — any of the eight registered families in
-    ops.pallas_rollout.FAMILIES: lti (point-mass + quadratic), lti-obstacle,
+    """'auto' → the fused kernels on a GPU when some fused family covers the
+    (model, cost) pair — any of the eight registered families in
+    ops.fused_rollout.FAMILIES: lti (point-mass + quadratic), lti-obstacle,
     pendulum, cartpole, quadrotor (planar), quadrotor3d, unicycle, arm
-    (two-link manipulator) — else the generic XLA scan path (which handles arbitrary dynamics/costs, incl.
-    MLP/hybrid models)."""
+    (two-link manipulator) — else the generic XLA scan path (which handles
+    arbitrary dynamics/costs, incl. MLP/hybrid models)."""
     if requested != "auto":
         return requested
-    from mppi_gpu_tpu.ops import pallas_rollout as pr
+    from mppi_gpu_tpu.ops import fused_rollout as fr
 
     try:
-        pr.check_supported(dyn, cost)
+        fr.family_for(dyn, cost)
     except TypeError:
         return "scan"
     platform = platform or jax.default_backend()
-    return "pallas" if platform == "tpu" else "scan"
+    return "pallas" if platform == "gpu" else "scan"
 
 
 class MPPIController:
@@ -573,7 +495,6 @@ class MPPIController:
         *,
         rollout_backend: str = "auto",
         donate_u: bool = False,
-        testmode: bool = False,
         sampler: str = "auto",
     ) -> None:
         from mppi_gpu_tpu.models import dynamics_for_config
@@ -586,8 +507,7 @@ class MPPIController:
         self.max_a = jnp.asarray(cfg.max_a, jnp.float32)
         rollout_backend = resolve_backend(rollout_backend, self.dynamics, self.cost)
         self.rollout_backend = rollout_backend
-        self._testmode = testmode
-        # scan-path normal sampler (pallas backends sample on-chip and
+        # scan-path normal sampler (pallas backends sample in-kernel and
         # ignore this); "auto" → rbg here (unbatched context), see
         # _standard_normal_tiled for the vmap caveat
         self.sampler = sampler
@@ -599,7 +519,6 @@ class MPPIController:
             rollout_backend=rollout_backend,
             antithetic=cfg.antithetic,
             ou_beta=cfg.noise_beta,
-            testmode=testmode,
             opt_iters=cfg.opt_iters,
             sampler=sampler,
         )
@@ -650,12 +569,12 @@ class MPPIController:
         src/main.cu:90-156 `to_csv2`). Compiled separately so the hot path
         never pays for the (T+1, K, s) state history.
 
-        FAITHFUL on every backend: for the scan backend the threefry noise
+        FAITHFUL on every backend: for the scan backend the sampler
         reproduces `solve` exactly; for the pallas backends the solve runs
-        through the SAME kernels as the hot path and the noise-dump kernel
-        (ops.pallas_rollout.pallas_noise_dump) replays the identical on-chip
-        PRNG stream those kernels consumed — the analog of the reference's
-        bit-faithful ε buffer round-trip (src/point_mass_gpu.cu:123-129).
+        through the SAME kernels as the hot path and the dump calls the
+        kernels' counter-based generator outside them
+        (ops.noise.noise_tensor) — the analog of the reference's ε buffer
+        round-trip (src/point_mass_gpu.cu:123-129).
         Under iterated MPPI (cfg.opt_iters > 1) the dump documents the FINAL
         iteration — the solve whose action drives the robot — after
         replaying the first M-1 updates exactly as the hot path does."""
@@ -664,7 +583,6 @@ class MPPIController:
 
             backend = self.rollout_backend
             pallas = backend in ("pallas", "pallas-interpret")
-            testmode = getattr(self, "_testmode", False)
 
             def dbg(dyn, cost, x, U, key, sigma, lambda_, max_a):
                 T, a = U.shape
@@ -680,7 +598,7 @@ class MPPIController:
                             K=self.cfg.samples, clamp=self.cfg.clamp_action,
                             rollout_backend=backend,
                             antithetic=self.cfg.antithetic,
-                            ou_beta=self.cfg.noise_beta, testmode=testmode,
+                            ou_beta=self.cfg.noise_beta,
                             sampler=self.sampler,
                         )
                         return r.info.u_seq, None
@@ -688,21 +606,17 @@ class MPPIController:
                     U, _ = jax.lax.scan(pre, U, jnp.arange(M - 1))
                     key = jax.random.fold_in(key, M - 1)
                 if pallas:
-                    from mppi_gpu_tpu.ops import pallas_rollout as pr
-
                     res = mppi_solve(
                         dyn, cost, x, U, key, sigma, lambda_, max_a,
                         K=self.cfg.samples, clamp=self.cfg.clamp_action,
                         rollout_backend=backend,
                         antithetic=self.cfg.antithetic,
-                        ou_beta=self.cfg.noise_beta, testmode=testmode,
+                        ou_beta=self.cfg.noise_beta,
                     )
-                    eps = pr.pallas_noise_dump(
-                        dyn, cost, x, U, key, sigma, K=self.cfg.samples,
+                    eps = noise_tensor(
+                        key, T, self.cfg.samples, a, sigma,
                         antithetic=self.cfg.antithetic,
                         ou_beta=self.cfg.noise_beta,
-                        interpret=backend == "pallas-interpret",
-                        testmode=testmode,
                     )
                     _, xs = rollout_trajectories(dyn, cost, x, U, eps)
                     return res, eps, xs

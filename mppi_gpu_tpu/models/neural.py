@@ -7,7 +7,7 @@ an MLP predicting the state *residual*, ``x' = x + net([x, u])``, so an
 untrained net is still a stable (identity) model.
 
 Plain-JAX parameters (no flax dependency on the hot path) so the whole pytree
-shards/jits trivially; widths are chosen MXU-friendly by default (128 lanes).
+shards/jits trivially; the default hidden width is 128.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ class MLPDynamics:
             # raw components span decades (e.g. hover thrust ~8 vs rates ~0.1)
             h = (h - self.in_shift) * self.in_scale
         for w, b in zip(self.weights[:-1], self.biases[:-1]):
-            # batched (K, in) @ (in, out): lands on the MXU when K is large
+            # batched (K, in) @ (in, out): a matrix product when K is large
             h = jnp.tanh(jnp.dot(h, w, preferred_element_type=jnp.float32) + b)
         w, b = self.weights[-1], self.biases[-1]
         delta = jnp.dot(h, w, preferred_element_type=jnp.float32) + b

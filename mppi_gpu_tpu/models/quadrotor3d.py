@@ -38,8 +38,8 @@ the other nonlinear families, with ONE quaternion renormalization at the
 end of the step (the midpoint stays unnormalized — at control-rate dt the
 drift is O(dt²) and the fused kernel mirrors this exactly). Notably the
 whole step is polynomial + a single rsqrt: no transcendentals at all,
-which makes this 13-state family CHEAPER per state dim on the VPU than
-the trig families."""
+which makes this 13-state family CHEAPER per state dim than the trig
+families."""
 
 from __future__ import annotations
 

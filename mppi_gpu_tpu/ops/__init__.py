@@ -1,7 +1,8 @@
 """Compute ops for the MPPI solve: costs, rollouts, softmin weighting.
 
 The JAX paths here are the semantic ground truth (and the CPU-runnable path);
-`pallas_rollout` provides the fused TPU kernel for the hot rollout+cost op.
+`fused_rollout` provides the fused GPU kernels for the rollout and the
+weighted update, drawing their noise from `noise`.
 """
 
 from mppi_gpu_tpu.ops.cost import COST_REGISTRY, QuadraticCost, make_cost

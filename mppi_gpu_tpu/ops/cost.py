@@ -79,6 +79,11 @@ class ObstacleCost:
         generic solve/kernel packing can treat every cost uniformly)."""
         return self.base.lambda_
 
+    @property
+    def inv_s(self) -> jax.Array:
+        """Σ⁻¹ diagonal of the control term (delegated like ``lambda_``)."""
+        return self.base.inv_s
+
     def _obstacle(self, x: jax.Array) -> jax.Array:
         a = self.centers.shape[-1]
         q = x[..., None, :a]                                  # (..., 1, a)

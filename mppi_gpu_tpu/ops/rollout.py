@@ -4,7 +4,8 @@ The reference runs one CUDA thread per rollout with a sequential T-loop
 (reference src/point_mass.cu:493-508, src/point_mass_gpu.cu:111-121). Here the
 whole batch advances together: one `lax.scan` over T whose body is a batched
 dynamics step + cost over all K rollouts — XLA fuses each step into a handful
-of VPU ops, and the sequential horizon stays on-chip. Trajectories are *not*
+of elementwise kernels, and the sequential horizon stays on the device.
+Trajectories are *not*
 materialized on the cost path (the reference keeps the full (K, T+1, s) state
 history resident for debugging; here that is the opt-in
 :func:`rollout_trajectories`).
@@ -14,14 +15,10 @@ Two layouts:
 * **flat** (:func:`rollout_costs`) — state ``(K, s)``, noise ``(T, K, a)``.
   The readable oracle form; also the injected-noise/deterministic path.
 * **tiled SoA** (:func:`rollout_costs_tiled`) — state ``(s, R, 128)``, noise
-  ``(T, a, R, 128)`` with ``R`` a multiple of 8. This is the production scan
-  layout on TPU: the flat form puts the tiny ``s``/``a`` dims (1-13) on the
-  128-lane minor axis, so every VPU op pads 128/a lanes (and trig lowers to
-  ~30-op polynomials on those mostly-empty tiles); the tiled form puts
-  rollouts on BOTH the sublane and lane axes of the (8, 128) tile — zero
-  padding — and reaches within ~2x of the fused Pallas kernels from plain
-  `vmap`-ed user dynamics (measured 2.4-11x over the flat layout across the
-  model families at K=1e5, T=200 on v5e).
+  ``(T, a, R, 128)`` with ``R`` a multiple of 8: rollouts on the two minor
+  axes, the tiny ``s``/``a`` dims (1-13) on the major one, from plain
+  `vmap`-ed user dynamics. This is the default scan layout; which layout is
+  faster on the GPU is not measured yet.
 """
 
 from __future__ import annotations
@@ -35,15 +32,14 @@ from mppi_gpu_tpu.models.base import Dynamics
 from mppi_gpu_tpu.ops.cost import Cost
 
 # Unroll factor for the horizon scan. The scan body is a handful of small
-# fused VPU ops over (K, ·) tensors, so at large K the loop's fixed
+# fused ops over (K, ·) tensors, so at large K the loop's fixed
 # per-iteration cost is a visible fraction of the solve; unrolling
 # amortizes it (identical numerics — unroll only changes code layout).
 # Tunable for measurement via MPPI_SCAN_UNROLL.
 _UNROLL = max(1, int(os.environ.get("MPPI_SCAN_UNROLL", "1")))
 
-# The (sublane, lane) tile of the TPU vector unit; the tiled layout shapes
-# the rollout batch as (R, LANE) with R a multiple of SUB so every op runs
-# on full tiles.
+# The tiled layout shapes the rollout batch as (R, LANE) with R a multiple
+# of SUB.
 LANE = 128
 SUB = 8
 

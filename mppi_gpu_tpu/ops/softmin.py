@@ -4,7 +4,7 @@ Replaces the reference's four-phase reduction pipeline — `beta()` multi-launch
 min tree, `exp_red`, `nabla()` multi-launch sum tree, `weights_kernel`
 (reference src/point_mass.cu:273-382, 510-575, 628-666, 743-754) — with a
 single fused expression. Under a sharded mesh, `axis_name` turns the min/sum
-into `lax.pmin`/`lax.psum` over ICI; that is the *entire* cross-chip
+into `lax.pmin`/`lax.psum` across the mesh; that is the *entire* cross-device
 communication of an MPPI solve (two scalar all-reduces).
 
     β   = min_k S_k

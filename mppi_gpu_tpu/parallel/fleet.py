@@ -4,7 +4,7 @@ The fleet axis (R independent control problems) is orthogonal to the
 rollout axis K (docs/scaling.md): robots share NOTHING per solve, so the
 natural multi-chip layout is whole robots per chip — `shard_map` over the
 robot axis with ZERO collectives; each device runs its R/n robots' full
-solves locally (the vmapped scan fleet, or the fleet fused kernel on TPU).
+solves locally (the vmapped scan fleet, or the fused fleet kernels on a GPU).
 This module executes that composition — it is the code behind
 docs/scaling.md's "a fleet shards naturally as whole robots per chip"
 paragraph, test-verified against the single-device fleet
@@ -49,7 +49,6 @@ class ShardedFleetController(BatchedMPPIController):
         goals: jax.Array | None = None,
         mesh: Mesh | None = None,
         rollout_backend: str = "auto",
-        testmode: bool = False,
         axis_name: str = ROLLOUT_AXIS,
     ) -> None:
         mesh = mesh if mesh is not None else make_mesh()
@@ -72,7 +71,7 @@ class ShardedFleetController(BatchedMPPIController):
             )
         super().__init__(
             cfg, n_robots, dynamics, cost, goals=goals,
-            rollout_backend=rollout_backend, testmode=testmode,
+            rollout_backend=rollout_backend,
         )
         self.mesh = mesh
 

@@ -1,10 +1,10 @@
 """Device-mesh construction.
 
 MPPI's only parallel axis is the rollout batch K (the reference shards it over
-CUDA threads on one GPU; src/point_mass.cu:265). Here K shards over a 1-D mesh
-of TPU chips — within a host that means ICI, across hosts DCN — and the solve
-needs exactly three small all-reduces (pmin β, psum η, psum ΔU), so scaling is
-near-linear.
+CUDA threads on one GPU; src/point_mass.cu:265). Here K shards over a flat 1-D
+mesh of devices — on GPUs joined all to all (NVLink), so the mesh follows the
+algorithm alone — and the solve needs exactly three small all-reduces (pmin β,
+psum η, psum ΔU), which XLA hands to NCCL.
 """
 
 from __future__ import annotations

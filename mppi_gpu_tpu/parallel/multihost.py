@@ -3,12 +3,12 @@
 
 The reference has no distributed story at all (one process, one GPU —
 reference src/point_mass.cu:265 is its only parallelism); this module is
-the "day real chips appear" path for the TPU build: on a TPU pod slice,
-every host runs the SAME program, `init_multihost()` wires the processes
-into one JAX runtime, and `jax.devices()` then returns the GLOBAL device
-list — `make_mesh()` over it spans hosts, K shards across the full slice,
-and the three per-solve all-reduces (pmin β, psum η, psum ΔU ≤ a few KB)
-ride ICI/DCN exactly as on a single host (docs/scaling.md).
+the multi-process path: every process runs the SAME program,
+`init_multihost()` wires the processes into one JAX runtime, and
+`jax.devices()` then returns the GLOBAL device list — `make_mesh()` over it
+spans processes, K shards across all of them, and the three per-solve
+all-reduces (pmin β, psum η, psum ΔU ≤ a few KB) run exactly as on a single
+process (docs/scaling.md).
 
 Nothing else in the framework changes: `ShardedMPPIController` is already
 mesh-size-agnostic, and every host executes the same replicated closed
@@ -32,9 +32,10 @@ def init_multihost(
 ) -> tuple[int, int]:
     """Idempotent `jax.distributed.initialize` wrapper.
 
-    On a TPU pod slice call it with no arguments — every parameter
-    auto-discovers from the TPU metadata. For manual bring-up (CPU/GPU
-    clusters, or single-process tests) pass all three explicitly.
+    Pass all three explicitly (``coordinator_address`` as ``host:port``).
+    With no arguments JAX auto-discovers them only under a cluster manager
+    it knows (e.g. SLURM); elsewhere, GPU machines included, the call
+    fails.
 
     Must run before the JAX backend initializes (i.e. before the first
     `jax.devices()` / array op); calling it after that point raises a

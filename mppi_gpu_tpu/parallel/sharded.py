@@ -2,9 +2,9 @@
 
 Each device rolls out K/n trajectories with decorrelated noise (key folded by
 mesh position), then the softmin + update use exactly three collectives —
-`pmin` (β), `psum` (η), `psum` (ΔU ∈ ℝ^{T×a}) — riding ICI. The reference has
-no distributed story at all (single process, single GPU); this module is the
-TPU-native scale-out the survey's §2 checklist calls for.
+`pmin` (β), `psum` (η), `psum` (ΔU ∈ ℝ^{T×a}), which XLA hands to NCCL on
+GPUs. The reference has no distributed story at all (single process, single
+GPU); this module is the scale-out the survey's §2 checklist calls for.
 
 Determinism note: the sharded solve is NOT bit-identical to the single-chip
 solve (different noise placement, different reduction order) but is identical
@@ -53,7 +53,6 @@ def sharded_mppi_solve(
     rollout_backend: str = "scan",
     antithetic: bool = False,
     ou_beta: float = 0.0,
-    testmode: bool = False,
     opt_iters: int = 1,
     sampler: str = "auto",
 ) -> SolveResult:
@@ -87,7 +86,7 @@ def sharded_mppi_solve(
             dyn, cost, x0, U, local_key, sigma, lambda_, max_a,
             K=k_loc, clamp=clamp, axis_name=axis_name,
             rollout_backend=rollout_backend, antithetic=antithetic,
-            ou_beta=ou_beta, testmode=testmode, opt_iters=opt_iters,
+            ou_beta=ou_beta, opt_iters=opt_iters,
             sampler=sampler,
         )
 
@@ -123,13 +122,12 @@ class ShardedMPPIController(MPPIController):
         *,
         mesh: Mesh | None = None,
         rollout_backend: str = "auto",
-        testmode: bool = False,
         sampler: str = "auto",
     ) -> None:
         # base init with the generic backend: its single-device jitted solve
         # is replaced below, so don't resolve 'auto' against the wrong
         # (default) platform here
-        super().__init__(cfg, dynamics, cost, rollout_backend="scan", testmode=testmode)
+        super().__init__(cfg, dynamics, cost, rollout_backend="scan")
         self.mesh = mesh if mesh is not None else make_mesh()
         # resolve the *requested* backend against the mesh's platform (may
         # differ from the default backend, e.g. a forced-CPU virtual mesh)
@@ -150,7 +148,6 @@ class ShardedMPPIController(MPPIController):
             rollout_backend=self.rollout_backend,
             antithetic=cfg.antithetic,
             ou_beta=cfg.noise_beta,
-            testmode=testmode,
             opt_iters=cfg.opt_iters,
             sampler=sampler,
         )

@@ -9,7 +9,7 @@ Two modes, mirroring and extending the reference's single host loop
     wall-clock exactly like the reference's "Average controller execution
     time" metric. Optional per-step debug dumps (reference save_step path).
 
-  * :func:`run_episode_jit` — the TPU-first mode the reference cannot do:
+  * :func:`run_episode_jit` — a mode the reference cannot do:
     the ENTIRE episode (≈600 control cycles of solve + world physics) is one
     `lax.scan` under jit — zero host↔device round-trips.
 """
@@ -260,8 +260,8 @@ def run_closed_loop(
             if is_dump:
                 # Dump steps run solve_debug INSTEAD of the hot-path solve — it
                 # is backend-faithful (scan reproduces the threefry stream,
-                # pallas replays the on-chip PRNG stream via the noise-dump
-                # kernel), so the CSV documents the exact solve that drives the
+                # pallas replays the kernels' counter-based stream via
+                # ops.noise.noise_tensor), so the CSV documents the exact solve that drives the
                 # robot — the analog of the reference's bit-faithful get_inf
                 # download of the executed buffers (src/point_mass.cu:236-262,
                 # src/main.cu:355-367). Excluded from the solve timer: it
@@ -341,7 +341,7 @@ def run_closed_loop(
 
 def _episode_cache(ctrl, kind: str, cache_key):
     """Per-controller cache of jitted episode programs. Rebuilding the
-    `@jax.jit` closure every call would re-trace (and off-TPU re-compile)
+    `@jax.jit` closure every call would re-trace (and re-compile)
     each time — repeated calls must be actually warm, both for users and
     for the bench's warm-rep timing."""
     cache = ctrl.__dict__.setdefault("_episode_jit_cache", {})
@@ -409,8 +409,8 @@ def run_fleet_episode_jit(
 ) -> EpisodeResult:
     """Whole-FLEET episode jit: R independent closed loops — R solves + R
     world steps per control cycle — as ONE `lax.scan` under jit. Composes
-    the two TPU-first modes (whole-episode jit × fleet solve): with the
-    fleet fused kernel inside the scan, an entire multi-robot episode runs
+    the two device-resident modes (whole-episode jit × fleet solve): with
+    the fused fleet kernels inside the scan, an entire multi-robot episode runs
     on-device with zero host round-trips. No reference analog (the
     reference is one robot, one GPU, host-driven).
 

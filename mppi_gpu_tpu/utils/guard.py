@@ -2,7 +2,7 @@
 
 The reference's only failure handling is print-and-exit macros around CUDA
 API calls (reference include/mppi_utils.hpp:14-25) — launch failures, not
-numerical ones. On TPU the runtime is memory-safe, so the failure mode that
+numerical ones. Under XLA the runtime is memory-safe, so the failure mode that
 actually matters is *numerical divergence*: NaN/Inf in the solve (exploding
 surrogate dynamics, degenerate cost weights, λ→0 underflow). The guard checks
 the per-step solve result on the host — the action is already fetched each

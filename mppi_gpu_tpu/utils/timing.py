@@ -82,8 +82,8 @@ def time_fn(
 
 @contextlib.contextmanager
 def profiler_trace(logdir: str | None):
-    """Optional `jax.profiler` trace (the reference has no profiler hooks; on
-    TPU this is how you see the HLO timeline)."""
+    """Optional `jax.profiler` trace (the reference has no profiler hooks; this
+    is how you see the device timeline)."""
     if logdir is None:
         yield
         return

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Render a closed-loop trajectory CSV as an animation — the offline analog
 of the reference's live GLFW/OpenGL viewer (reference PointMassEnv.cpp:141-169
-renders MuJoCo scenes at 60 fps with an interactive camera; headless TPU pods
-have no display, so this replays the recorded episode as a GIF instead).
+renders MuJoCo scenes at 60 fps with an interactive camera; headless
+accelerator machines have no display, so this replays the recorded episode as a GIF instead).
 
     python scripts/animate.py traj.csv -c configs/point_mass2d.yaml -o out.gif
 

@@ -2,10 +2,10 @@
 
 Run as a SUBPROCESS (tests/test_multihost.py): `jax.distributed.initialize`
 must happen before the JAX backend initializes, which the pytest process
-has long since done. Exercises the exact call sequence a real pod slice
-would run — init_multihost → global_mesh → ShardedMPPIController → solve —
-with num_processes=1 on a virtual 8-device CPU mesh, so the day real
-multi-host chips appear nothing needs writing (VERDICT round 2, item 8).
+has long since done. Exercises the exact call sequence a multi-process run
+makes — init_multihost (explicit coordinator, process count and id) →
+global_mesh → ShardedMPPIController → solve — with num_processes=1 on a
+virtual 8-device CPU mesh.
 """
 
 import os

@@ -1,34 +1,18 @@
-"""REAL multi-process cluster check: 2 OS processes (coordinator + worker)
-wired into ONE JAX runtime by `jax.distributed.initialize` — the strongest
-multi-host-correctness evidence obtainable without a pod slice (VERDICT
-round 3, item 2; round 4, item 1). Cross-process collectives ride XLA:CPU's
-Gloo transport, standing in for ICI/DCN.
+"""REAL multi-process cluster check: OS processes wired into ONE JAX
+runtime by `jax.distributed.initialize` (explicit coordinator address,
+process count and id). Cross-process collectives ride XLA:CPU's Gloo
+transport.
 
-Two scenarios, each run as a SUBPROCESS PAIR by tests/test_multihost.py (and
-by `__graft_entry__.dryrun_multihost`):
+Scenarios, each run as a group of SUBPROCESSES by tests/test_multihost.py
+(and by `__graft_entry__.dryrun_multihost`):
 
-* ``scan`` — 4 virtual CPU devices per process, global 8-device mesh, the
+* ``scan`` — 2 processes × 4 virtual CPU devices, global 8-device mesh, the
   sharded scan-backend solve: the three collectives (pmin β, psum η,
   psum ΔU) cross the process boundary.
-* ``pallas-onepass`` — 1 virtual CPU device per process, global 2-device
-  mesh, rollout_backend="pallas-interpret" + testmode with the one-pass
-  sharded branch opted in (MPPI_SHARDED_ONEPASS_INTERPRET=1): THE default
-  multi-chip dispatch — the single-launch one-pass PLANAR fused core per
-  device (the flagship point_mass3d geometry, a=3) + the associative
-  softmin combine (controller.pallas_solve: β = pmin, η/ΔU = psum) — with
-  its pmin/psum riding Gloo ACROSS OS PROCESSES. One device per process
-  sidesteps the Mosaic interpreter's ≥4-device io_callback-pool livelock
-  (each interpreter only serves its one addressable device; the combine
-  collectives are plain XLA ops outside the kernel).
-
-The pallas scenario generalizes to ANY process count — `pallas-onepass-8`
-runs the SAME composed program as 8 OS processes × 1 device each (global
-8-device mesh): this is how the one-pass composed evidence passes n=2
-(VERDICT round 4, weak #2/directive 5) — the single-process interpreter
-livelocks its io_callback pool at ≥4 device threads, but with one device
-per PROCESS no interpreter ever hosts more than one device thread, so the
-full n=8 program executes with 7 of its 8 pmin/psum partners across
-process boundaries.
+* ``pallas`` — 2 processes × 1 virtual CPU device, global 2-device mesh,
+  rollout_backend="pallas-interpret": the fused kernels per device
+  (interpreted) with their pmin/psum combine crossing the processes.
+  ``pallas-8`` runs the same program as 8 processes × 1 device.
 
 With no argv, this script runs both default scenario groups; with one
 argv it runs that scenario's group; with argv = (scenario, process_id,
@@ -37,18 +21,17 @@ num_processes, port) it IS one of the processes.
 Each process:
   * brings up the distributed runtime via `init_multihost` (the production
     bootstrap wrapper), asserting its (process_index, process_count),
-  * builds the GLOBAL mesh spanning both processes (`global_mesh`),
+  * builds the GLOBAL mesh spanning all processes (`global_mesh`),
   * runs the sharded MPPI solve — the collectives now cross the process
     boundary,
   * independently reconstructs the per-device noise (fold_in by mesh
-    position, identical on every host) and asserts its replicated
-    action/u_next (and, for pallas, the pmin'd global β) against the
-    single-device deterministic oracle,
+    position, identical on every process) and asserts its replicated
+    action/u_next against the single-device deterministic oracle,
   * checks its ADDRESSABLE shards of the K-sharded diagnostics line up with
     the oracle's corresponding slice (each process holds only its part).
 
-Prints MULTIPROC_OK[scenario][pid] per process; the parent requires both
-processes of both scenarios and prints a summary MULTIPROC_OK line naming
+Prints MULTIPROC_OK[scenario][pid] per process; the parent requires every
+process of every scenario and prints a summary MULTIPROC_OK line naming
 the scenarios.
 """
 
@@ -58,11 +41,11 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SCENARIOS = ("scan", "pallas-onepass")
+SCENARIOS = ("scan", "pallas")
 
 
 def _nproc_of(scenario: str) -> int:
-    if scenario.startswith("pallas-onepass-"):
+    if scenario.startswith("pallas-"):
         return int(scenario.rsplit("-", 1)[1])
     return 2
 
@@ -112,7 +95,7 @@ def parent() -> None:
 def child(scenario: str, pid: int, nproc: int, port: int) -> None:
     import re
 
-    n_local = 1 if scenario.startswith("pallas-onepass") else 4
+    n_local = 1 if scenario.startswith("pallas") else 4
     flags = re.sub(
         r"--xla_force_host_platform_device_count=\d+", "",
         os.environ.get("XLA_FLAGS", ""),
@@ -120,12 +103,6 @@ def child(scenario: str, pid: int, nproc: int, port: int) -> None:
     os.environ["XLA_FLAGS"] = (
         flags + f" --xla_force_host_platform_device_count={n_local}"
     ).strip()
-    if scenario.startswith("pallas-onepass"):
-        # opt the controller's sharded dispatch into the one-pass branch
-        # under the interpreter (n=1 device per process — no thread-pool
-        # starvation; see module docstring)
-        os.environ["MPPI_SHARDED_ONEPASS_INTERPRET"] = "1"
-
     import faulthandler
 
     # self-diagnosing watchdog: if anything livelocks, dump all stacks and
@@ -158,48 +135,10 @@ def child(scenario: str, pid: int, nproc: int, port: int) -> None:
     n = mesh.devices.size
     assert n == n_local * nproc, mesh
 
-    if scenario.startswith("pallas-onepass"):
-        # The Mosaic interpreter's simulated-TPU shared memory sizes its
-        # start/cleanup barriers to the shard_map AXIS size (2), but in a
-        # multi-process run each process hosts only ITS addressable device
-        # thread — a 2-party threading.Barrier can never be satisfied inside
-        # one process, so the composed program hangs at
-        # interpret_pallas_call._barrier (observed; the barrier models
-        # intra-process device coupling that doesn't exist across real OS
-        # processes). Resize both barriers to the LOCAL device count: sound
-        # here because the kernels have no cross-device semantics inside
-        # pallas (no collective_id, no remote DMA — the pmin/psum combine is
-        # plain XLA outside the kernel, and THAT is what must cross Gloo),
-        # and the clock arrays stay sized for the global device ids.
-        import threading
+    if scenario.startswith("pallas"):
+        from mppi_gpu_tpu.ops.noise import noise_tensor
 
-        from jax._src.pallas.mosaic.interpret import (
-            interpret_pallas_call as _ipc,
-        )
-
-        _orig_init = _ipc._initialize_shared_memory
-
-        def _init_with_local_barriers(
-            device_id, num_devices, num_cores_per_device, *, interpret_params
-        ):
-            _orig_init(
-                device_id, num_devices, num_cores_per_device,
-                interpret_params=interpret_params,
-            )
-            sm = _ipc._shared_memory
-            if sm is not None and sm.barrier.parties != n_local:
-                sm.barrier = threading.Barrier(
-                    n_local, action=_ipc._update_clocks_for_global_barrier
-                )
-                sm.clean_up_barrier = threading.Barrier(
-                    n_local, action=_ipc._clear_shared_memory
-                )
-
-        _ipc._initialize_shared_memory = _init_with_local_barriers
-
-        from mppi_gpu_tpu.ops import pallas_rollout as pr
-
-        # flagship point_mass3d geometry: a=3 → the PLANAR one-pass core
+        # the point_mass3d geometry (a=3)
         K, T, a = n * 96, 7, 3
         cfg = MPPIConfig(
             env="t", samples=K, state_dim=2 * a, action_dim=a, horizon=T,
@@ -208,7 +147,7 @@ def child(scenario: str, pid: int, nproc: int, port: int) -> None:
             cost_type="quadratic", cost_w=(1.0,) * a + (0.5,) * a,
         )
         ctrl = ShardedMPPIController(
-            cfg, mesh=mesh, rollout_backend="pallas-interpret", testmode=True
+            cfg, mesh=mesh, rollout_backend="pallas-interpret"
         )
         assert ctrl.rollout_backend == "pallas-interpret"
         x = jnp.asarray([0.3, -0.2, 0.1, 0.0, 0.05, -0.05], jnp.float32)
@@ -217,27 +156,13 @@ def child(scenario: str, pid: int, nproc: int, port: int) -> None:
         res = ctrl.solve(x, U, key)
         jax.block_until_ready(res)
 
-        # dispatch preconditions of the one-pass sharded branch
-        # (controller.pallas_solve): with these true and the opt-in env var
-        # set, the solve above RAN the composed one-pass program — its
-        # pmin(β)/psum(η, ΔU) crossed the Gloo process boundary
+        # the shared generator's stream per device, concatenated in mesh
+        # order — identical on every process, so all build the SAME oracle
         k_loc = K // n
-        fam = pr.family_for(ctrl.dynamics, ctrl.cost)
-        plan = pr.make_plan(
-            k_loc, T, a, testmode=True, family=fam,
-            extra=pr._plan_extra(pr.FAMILIES[fam], ctrl.cost),
-        )
-        assert plan.onepass or plan.planar, plan
-        assert os.environ.get("MPPI_SHARDED_ONEPASS_INTERPRET") == "1"
-
-        # host twin of the stream the executed kernels consumed (the planar
-        # one-pass core reads the planar stream), concatenated in mesh order
-        # — identical on every host, so both processes build the SAME oracle
         sigma = jnp.asarray(cfg.noise, jnp.float32)
-        twin = pr.planar_fake_noise_tensor if plan.planar else pr.fake_noise_tensor
         eps = jnp.concatenate(
             [
-                twin(plan, sigma, key=jax.random.fold_in(key, d))[:, :k_loc, :]
+                noise_tensor(jax.random.fold_in(key, d), T, k_loc, a, sigma)
                 for d in range(n)
             ],
             axis=1,

@@ -171,7 +171,7 @@ def test_no_native_twin_but_mujoco_works():
     assert np.all(np.isfinite(res.xs))
 
 
-# --- fused family (interpret + testmode, the unicycle-family test pattern)
+# --- fused family (kernels in interpret mode vs the scan reference)
 
 
 def _setup_arm(T=10, K=280):
@@ -191,59 +191,25 @@ def _setup_arm(T=10, K=280):
 
 
 def test_arm_fused_family_matches_oracle():
-    """Kernels A/B + the single-launch fused core vs the scan oracle fed the
-    host-twin noise (testmode, interpreted)."""
-    from mppi_gpu_tpu.ops import pallas_rollout as pr
-    from mppi_gpu_tpu.ops.rollout import rollout_costs
-    from mppi_gpu_tpu.ops.softmin import softmin_weights
+    """Kernels A/B vs the scan reference fed the same ε (interpreted)."""
+    from fused_check import check_against_reference
+
+    from mppi_gpu_tpu.ops import fused_rollout as fr
 
     K, T = 280, 10
     dyn, cost, x0, U, sigma = _setup_arm(T, K)
-    assert pr.family_for(dyn, cost) == "arm"
-    key, lam = jax.random.key(13), jnp.float32(0.4)
-    plan = pr.make_plan(K, T, 2, testmode=True, family="arm")
-    eps_ref = pr.fake_noise_tensor(plan, sigma, key=key)
-
-    S = pr.pallas_rollout_costs(
-        dyn, cost, x0, U, key, sigma, K=K, interpret=True, testmode=True
-    )
-    S_oracle = rollout_costs(dyn, cost, x0, U, eps_ref[:, :K, :])
-    np.testing.assert_allclose(np.asarray(S[:K]), np.asarray(S_oracle), rtol=5e-5)
-    assert np.all(np.asarray(S[K:]) > 1e37)
-
-    sm = softmin_weights(S, lam)
-    dU = pr.pallas_weighted_update(
-        dyn, cost, x0, U, key, sigma, sm.weights, K=K, interpret=True, testmode=True
-    )
-    dU_oracle = jnp.einsum("tka,k->ta", eps_ref[:, :K, :], sm.weights[:K])
-    np.testing.assert_allclose(
-        np.asarray(dU), np.asarray(dU_oracle), rtol=2e-4, atol=1e-6
-    )
-
-    # the fused core rides the round-5 STATE-PLANAR plan for this coupled
-    # family — its stream is the planar one, so the oracle noise switches
-    assert plan.planar
-    eps_p = pr.planar_fake_noise_tensor(plan, sigma, key=key)[:, :K, :]
-    Sf, dUf = pr.pallas_fused_solve_core(
-        dyn, cost, x0, U, key, sigma, lam, K=K, testmode=True, interpret=True
-    )
-    Sp_oracle = rollout_costs(dyn, cost, x0, U, eps_p)
-    np.testing.assert_allclose(np.asarray(Sf[:K]), np.asarray(Sp_oracle), rtol=5e-5)
-    smf = softmin_weights(Sf, lam)
-    dUf_oracle = jnp.einsum("tka,k->ta", eps_p, smf.weights[:K])
-    np.testing.assert_allclose(
-        np.asarray(dUf), np.asarray(dUf_oracle), rtol=2e-4, atol=1e-6
-    )
+    assert fr.family_for(dyn, cost) == "arm"
+    check_against_reference(dyn, cost, x0, U, sigma, K=K, key=jax.random.key(13), lam=0.4)
 
 
 def test_arm_fused_uses_cost_link_lengths():
     """The kernel's FK link lengths must come from the COST, not the
     dynamics: a user who builds TwoLinkArmDynamics.create(dt, l1=.., l2=..)
     with a default-length ArmReachCost must get the SAME costs on
-    backend='pallas' as on 'scan' (host-twin invariant)."""
-    from mppi_gpu_tpu.ops import pallas_rollout as pr
+    backend='pallas' as on 'scan'."""
+    from fused_check import check_against_reference
+
     from mppi_gpu_tpu.ops.cost import ArmReachCost
-    from mppi_gpu_tpu.ops.rollout import rollout_costs
 
     K, T = 280, 8
     # dynamics lengths ≠ cost lengths (cost keeps its 0.5 defaults)
@@ -256,23 +222,15 @@ def test_arm_fused_uses_cost_link_lengths():
     x0 = jnp.asarray([-1.2, 0.4, 0.5, -0.3])
     t = jnp.arange(T, dtype=jnp.float32)
     U = jnp.stack([4.0 + 2.0 * jnp.sin(0.3 * t), 1.5 * jnp.cos(0.5 * t)], axis=1)
-    sigma = jnp.asarray([2.0, 1.0])
-    key = jax.random.key(7)
-    assert pr.family_for(dyn, cost) == "arm"
-    plan = pr.make_plan(K, T, 2, testmode=True, family="arm")
-    eps_ref = pr.fake_noise_tensor(plan, sigma, key=key)
-    S = pr.pallas_rollout_costs(
-        dyn, cost, x0, U, key, sigma, K=K, interpret=True, testmode=True
-    )
-    S_oracle = rollout_costs(dyn, cost, x0, U, eps_ref[:, :K, :])
-    np.testing.assert_allclose(np.asarray(S[:K]), np.asarray(S_oracle), rtol=5e-5)
+    check_against_reference(dyn, cost, x0, U, jnp.asarray([2.0, 1.0]), K=K,
+                            key=jax.random.key(7))
 
 
 def test_arm_controller_pallas_interpret_end_to_end():
     """MPPIController drives the arm through the REAL fused dispatch path
-    (pallas-interpret + testmode): finite, clamped, weights sum to 1."""
+    (pallas-interpret): finite, clamped, weights sum to 1."""
     cfg = load_config(CFG).replace(samples=128, horizon=12)
-    ctrl = MPPIController(cfg, rollout_backend="pallas-interpret", testmode=True)
+    ctrl = MPPIController(cfg, rollout_backend="pallas-interpret")
     x = jnp.asarray([-1.5707963, 0.0, 0.0, 0.0], jnp.float32)
     res = ctrl.solve(x, ctrl.init_action_seq(), ctrl.init_key())
     assert bool(jnp.all(jnp.isfinite(res.action)))

@@ -97,25 +97,20 @@ def test_per_robot_goals_rejected_for_builtin_target_costs():
 
 
 # ---------------------------------------------------------------------------
-# Fleet fused kernel (pallas backend): grid axis = robot axis
+# Fleet fused kernels (pallas backend): grid axis 0 = robot axis
 
 
 def _fleet_vs_single_pallas(cfg, B, goals=None):
-    """Fleet fused kernel vs a per-robot reference with the same keys.
-
-    Row-packed families: the reference is B independent single-robot
-    interpret solves (both run the same phase bodies and seed identically).
-    PLANAR-plan families (A=3 lti + the round-5 coupled set): the fleet
-    rides the planar fleet kernel, whose stream differs from the
-    single-robot interpret controller's kernels A/B — the reference is the
-    scan-oracle solve fed each robot's planar host-twin noise."""
+    """Fleet kernels (robot = grid axis 0) vs per-robot references with the
+    same keys: the single-robot pallas controller, and the deterministic
+    scan solve fed each robot's ε from the shared generator."""
     import dataclasses as dc
 
     from mppi_gpu_tpu.controller import mppi_solve_deterministic
-    from mppi_gpu_tpu.ops import pallas_rollout as pr
+    from mppi_gpu_tpu.ops.noise import noise_tensor
 
     ctrl_b = BatchedMPPIController(
-        cfg, B, goals=goals, rollout_backend="pallas-interpret", testmode=True
+        cfg, B, goals=goals, rollout_backend="pallas-interpret"
     )
     xs = jnp.stack([jnp.full((cfg.state_dim,), 0.05 * i) for i in range(B)])
     if cfg.state_dim == 13:  # quadrotor3d: states need a unit quaternion
@@ -127,45 +122,38 @@ def _fleet_vs_single_pallas(cfg, B, goals=None):
     assert res_b.action.shape == (B, cfg.action_dim)
     assert res_b.info.costs.shape == (B, cfg.samples)
 
-    fam = pr.family_for(ctrl_b.dynamics, ctrl_b.cost)
-    plan = pr.make_plan(
-        cfg.samples, cfg.horizon, cfg.action_dim, cfg.antithetic,
-        cfg.noise_beta, testmode=True, family=fam,
-        extra=pr._plan_extra(pr.FAMILIES[fam], ctrl_b.cost),
-    )
     for i in range(B):
         cost_i = ctrl_b.cost
         if goals is not None:
-            cost_i = dc.replace(cost_i, goal=goals[i])
-        if plan.planar:
-            # the deterministic oracle below replicates ONE iteration; pin
-            # opt_iters=1 in callers (the iterated path has its own test)
-            assert cfg.opt_iters == 1, "planar fleet oracle assumes opt_iters=1"
-            eps = pr.planar_fake_noise_tensor(
-                plan, ctrl_b.sigma, ou_beta=cfg.noise_beta, key=keys[i]
-            )[:, : cfg.samples, :]
-            res_1 = mppi_solve_deterministic(
+            cost_i = (dc.replace(cost_i, goal=goals[i]) if hasattr(cost_i, "goal")
+                      else dc.replace(cost_i, base=dc.replace(cost_i.base, goal=goals[i])))
+        ctrl_1 = MPPIController(cfg, cost=cost_i, rollout_backend="pallas-interpret")
+        res_1 = ctrl_1.solve(xs[i], Us[i], keys[i])
+        # (reference, tolerance on actions): the same kernels exactly; the
+        # scan solve within the softmin's amplification (1/λ) of the
+        # kernels' small-angle trig-carry rounding in S
+        refs = [(res_1, 1e-4)]
+        if cfg.opt_iters == 1:
+            eps = noise_tensor(keys[i], cfg.horizon, cfg.samples, cfg.action_dim,
+                               ctrl_b.sigma, antithetic=cfg.antithetic,
+                               ou_beta=cfg.noise_beta)
+            refs.append((mppi_solve_deterministic(
                 ctrl_b.dynamics, cost_i, xs[i], Us[i], eps,
                 ctrl_b.lambda_, ctrl_b.max_a, clamp=cfg.clamp_action,
+            ), 1e-3))
+        for ref, tol in refs:
+            np.testing.assert_allclose(
+                np.asarray(res_b.action[i]), np.asarray(ref.action),
+                rtol=tol, atol=1e-6,
             )
-        else:
-            ctrl_1 = MPPIController(
-                cfg, cost=cost_i, rollout_backend="pallas-interpret",
-                testmode=True,
+            np.testing.assert_allclose(
+                np.asarray(res_b.u_next[i]), np.asarray(ref.u_next),
+                rtol=tol, atol=1e-6,
             )
-            res_1 = ctrl_1.solve(xs[i], Us[i], keys[i])
-        np.testing.assert_allclose(
-            np.asarray(res_b.action[i]), np.asarray(res_1.action),
-            rtol=1e-4, atol=1e-6,
-        )
-        np.testing.assert_allclose(
-            np.asarray(res_b.u_next[i]), np.asarray(res_1.u_next),
-            rtol=1e-4, atol=1e-6,
-        )
-        np.testing.assert_allclose(
-            np.asarray(res_b.info.costs[i]), np.asarray(res_1.info.costs),
-            rtol=1e-4,
-        )
+            np.testing.assert_allclose(
+                np.asarray(res_b.info.costs[i]), np.asarray(ref.info.costs),
+                rtol=1e-4,
+            )
 
 
 def test_fleet_pallas_matches_single_pallas():
@@ -180,10 +168,10 @@ def test_fleet_pallas_per_robot_goals():
 
 
 def test_fleet_pallas_quadrotor3d():
-    """Largest family through the fleet kernel: A=4 (G=2), 13 state tiles.
-    opt_iters pinned to 1 (the yaml ships opt-iters 2 since round 5): the
-    subject is the fleet kernel vs the per-robot oracle, and the iterated
-    fleet path has its own test (test_opt_iters_fleet_pallas...)."""
+    """Largest family through the fleet kernels: A=4, 13 state vectors.
+    opt_iters pinned to 1 (the yaml ships opt-iters 2): the subject is the
+    fleet kernels vs the per-robot references, and the iterated fleet path
+    has its own test (test_opt_iters_fleet_pallas...)."""
     cfg = load_config("configs/quadrotor3d.yaml").replace(
         samples=300, horizon=10, opt_iters=1
     )
@@ -191,8 +179,8 @@ def test_fleet_pallas_quadrotor3d():
 
 
 def test_fleet_pallas_arm():
-    """Eighth family through the fleet kernel: configuration-dependent mass
-    matrix + the carried-trig step (A=2, G=4, 8 state+trig tiles)."""
+    """Eighth family through the fleet kernels: configuration-dependent
+    mass matrix + the carried-trig step."""
     cfg = load_config("configs/arm.yaml").replace(
         samples=300, horizon=10, noise_beta=0.0, opt_iters=1
     )
@@ -205,15 +193,13 @@ def test_fleet_pallas_antithetic_and_ou():
 
 
 def test_fleet_pallas_planar_matches_oracle(rng):
-    """A=3 fleet rides the PLANAR fleet kernel (plan.planar); every robot
-    must match the scan-oracle solve fed its planar host-twin noise (the
-    planar stream differs from kernels A/B's, so the oracle — not the
-    single-robot interpret controller, which runs A/B — is the reference)."""
+    """A=3 lti fleet with random per-robot goals and states: every robot
+    matches the scan solve fed its ε from the shared generator."""
     import dataclasses as dc
 
     from mppi_gpu_tpu.config import MPPIConfig
     from mppi_gpu_tpu.controller import mppi_solve_deterministic
-    from mppi_gpu_tpu.ops import pallas_rollout as pr
+    from mppi_gpu_tpu.ops.noise import noise_tensor
 
     R, K, T, A = 3, 260, 9, 3
     cfg = MPPIConfig(
@@ -222,11 +208,9 @@ def test_fleet_pallas_planar_matches_oracle(rng):
         goal=(1.0,) * A + (0.0,) * A, cost_type="quadratic",
         cost_w=(1.0,) * A + (0.5,) * A,
     )
-    plan = pr.make_plan(K, T, A, testmode=True)
-    assert plan.planar
     goals = jnp.asarray(rng.normal(size=(R, 2 * A)), jnp.float32)
     fleet = BatchedMPPIController(
-        cfg, R, goals=goals, rollout_backend="pallas-interpret", testmode=True
+        cfg, R, goals=goals, rollout_backend="pallas-interpret"
     )
     xs = jnp.asarray(rng.normal(size=(R, 2 * A)) * 0.3, jnp.float32)
     Us = fleet.init_action_seqs()
@@ -236,10 +220,10 @@ def test_fleet_pallas_planar_matches_oracle(rng):
     sigma = jnp.asarray(cfg.noise, jnp.float32)
     base_cost = MPPIController(cfg, rollout_backend="scan").cost
     for r in range(R):
-        eps = pr.planar_fake_noise_tensor(plan, sigma, key=keys[r])
+        eps = noise_tensor(keys[r], T, K, A, sigma)
         cost_r = dc.replace(base_cost, goal=goals[r])
         ref = mppi_solve_deterministic(
-            fleet.dynamics, cost_r, xs[r], Us[r], eps[:, :K, :],
+            fleet.dynamics, cost_r, xs[r], Us[r], eps,
             fleet.lambda_, fleet.max_a, clamp=cfg.clamp_action,
         )
         np.testing.assert_allclose(

@@ -97,3 +97,20 @@ def test_unknown_cost_type_raises():
     )
     with pytest.raises(ValueError, match="unknown cost.type"):
         make_cost(cfg)
+
+
+@pytest.mark.parametrize(
+    "path", sorted(CONFIGS.glob("*.yaml")), ids=lambda p: p.stem
+)
+def test_mini_yaml_matches_pyyaml(path):
+    """The fallback parser (used where PyYAML is not installed) reads every
+    shipped config exactly as PyYAML does."""
+    import yaml
+
+    from mppi_gpu_tpu.config import _mini_yaml, config_from_mapping
+
+    text = path.read_text()
+    assert _mini_yaml(text) == yaml.safe_load(text)
+    assert config_from_mapping(_mini_yaml(text)) == config_from_mapping(
+        yaml.safe_load(text)
+    )

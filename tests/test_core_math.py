@@ -71,8 +71,8 @@ def test_quadratic_cost_matches_oracle(rng):
 @pytest.mark.parametrize("K,T,a", [(1, 1, 1), (3, 12, 2), (17, 5, 3), (64, 50, 2)])
 def test_rollout_costs_match_oracle(rng, K, T, a):
     """Size sweep hits the same edge cases the reference's test.cu sweeps for
-    (n=1..59, t=1..99 block boundaries — irrelevant on TPU, but K=1/T=1 still
-    matter)."""
+    (n=1..59, t=1..99 block boundaries — the fused kernels' own block edges
+    are tested in test_fused_rollout.py, but K=1/T=1 still matter)."""
     cfg = make_cfg(K=K, T=T, a=a)
     dyn = PointMassLTI.create(cfg.dt, a)
     cost = make_cost(cfg)

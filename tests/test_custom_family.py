@@ -1,7 +1,7 @@
 """Public fused-family extension API (register_family): an OUT-OF-TREE family
 — examples/custom_family.py's kinematic bicycle, no package edits — must ride
-every piece of shared kernel machinery and match the scan-path oracle, the
-same host-twin verification the built-in families get (test_unicycle.py
+every piece of shared kernel machinery and match the scan reference fed the
+same ε, the verification the built-in families get (test_unicycle.py
 pattern, itself the analog of the reference's CPU-oracle kernel tests,
 reference src/test.cu:97-105)."""
 
@@ -38,7 +38,7 @@ def example():
 
 def test_registration_validates_protocol():
     from mppi_gpu_tpu import register_family
-    from mppi_gpu_tpu.ops.pallas_rollout import unregister_family
+    from mppi_gpu_tpu.ops.fused_rollout import unregister_family
 
     class MissingBits:
         name = "broken"
@@ -46,18 +46,17 @@ def test_registration_validates_protocol():
     with pytest.raises(TypeError, match="lacks required attribute"):
         register_family(MissingBits)
 
-    class NoNP:
-        name = "broken"
+    class NoName:
+        name = ""
         supports = staticmethod(lambda d, c: False)
-        pack = staticmethod(lambda *a: None)
-        build = staticmethod(lambda *a: None)
+        pack_planar = staticmethod(lambda *a: None)
+        build_planar = staticmethod(lambda *a: None)
 
-    with pytest.raises(TypeError, match="NP"):
-        register_family(NoNP)
+    with pytest.raises(TypeError, match="non-empty"):
+        register_family(NoName)
 
-    class StealsBuiltin(NoNP):
+    class StealsBuiltin(NoName):
         name = "lti"
-        NP = 8
 
     with pytest.raises(ValueError, match="built-in"):
         register_family(StealsBuiltin)
@@ -68,7 +67,7 @@ def test_registration_validates_protocol():
 def test_reregistration_replaces_user_family(example):
     """Module re-import (a new class object, same name) must not error —
     the example module is loaded twice across this test session."""
-    from mppi_gpu_tpu.ops.pallas_rollout import FAMILIES
+    from mppi_gpu_tpu.ops.fused_rollout import FAMILIES
 
     again = _load_example()
     assert FAMILIES["bicycle-demo"] is again.BicycleFamily
@@ -96,71 +95,35 @@ def _setup(example, T=11, K=260):
 
 def test_dispatch_selects_registered_family(example):
     from mppi_gpu_tpu.controller import resolve_backend
-    from mppi_gpu_tpu.ops import pallas_rollout as pr
+    from mppi_gpu_tpu.ops import fused_rollout as fr
 
     dyn, cost, *_ = _setup(example)
-    assert pr.family_for(dyn, cost) == "bicycle-demo"
-    assert resolve_backend("auto", dyn, cost, platform="tpu") == "pallas"
+    assert fr.family_for(dyn, cost) == "bicycle-demo"
+    assert resolve_backend("auto", dyn, cost, platform="gpu") == "pallas"
     assert resolve_backend("auto", dyn, cost, platform="cpu") == "scan"
 
 
 def test_custom_family_matches_oracle(example):
-    """Kernels A/B + the single-launch fused core vs the scan oracle fed the
-    host-twin noise (testmode, interpreted) — the full verification pattern
-    an out-of-tree family author follows."""
-    from mppi_gpu_tpu.ops import pallas_rollout as pr
-    from mppi_gpu_tpu.ops.rollout import rollout_costs
-    from mppi_gpu_tpu.ops.softmin import softmin_weights
+    """Kernels A/B vs the scan reference fed the same ε (interpreted) — the
+    verification pattern an out-of-tree family author follows."""
+    from fused_check import check_against_reference
 
-    K, T = 260, 11
-    dyn, cost, x0, U, sigma = _setup(example, T, K)
-    key, lam = jax.random.key(7), jnp.float32(0.6)
-    plan = pr.make_plan(K, T, 2, testmode=True, family="bicycle-demo")
-    eps_ref = pr.fake_noise_tensor(plan, sigma, key=key)
-
-    S = pr.pallas_rollout_costs(
-        dyn, cost, x0, U, key, sigma, K=K, interpret=True, testmode=True
-    )
-    S_oracle = rollout_costs(dyn, cost, x0, U, eps_ref[:, :K, :])
-    np.testing.assert_allclose(np.asarray(S[:K]), np.asarray(S_oracle), rtol=3e-5)
-    assert np.all(np.asarray(S[K:]) > 1e37)
-
-    sm = softmin_weights(S, lam)
-    dU = pr.pallas_weighted_update(
-        dyn, cost, x0, U, key, sigma, sm.weights, K=K, interpret=True, testmode=True
-    )
-    dU_oracle = jnp.einsum("tka,k->ta", eps_ref[:, :K, :], sm.weights[:K])
-    np.testing.assert_allclose(
-        np.asarray(dU), np.asarray(dU_oracle), rtol=2e-4, atol=1e-6
-    )
-
-    Sf, dUf = pr.pallas_fused_solve_core(
-        dyn, cost, x0, U, key, sigma, lam, K=K, testmode=True, interpret=True
-    )
-    np.testing.assert_allclose(np.asarray(Sf[:K]), np.asarray(S_oracle), rtol=3e-5)
-    smf = softmin_weights(Sf, lam)
-    dUf_oracle = jnp.einsum("tka,k->ta", eps_ref[:, :K, :], smf.weights[:K])
-    np.testing.assert_allclose(
-        np.asarray(dUf), np.asarray(dUf_oracle), rtol=2e-4, atol=1e-6
-    )
+    for anti, ou in ((False, 0.0), (True, 0.0), (False, 0.5)):
+        dyn, cost, x0, U, sigma = _setup(example, 11, 260)
+        check_against_reference(dyn, cost, x0, U, sigma, K=260, antithetic=anti,
+                                ou_beta=ou, key=jax.random.key(7), lam=0.6)
 
 
 def test_controller_end_to_end_interpret(example):
     """MPPIController drives the registered family through the REAL fused
-    dispatch path (pallas-interpret + testmode) and through scan: both
-    reach the waypoint."""
+    dispatch path (pallas-interpret) and through scan: both reach the
+    waypoint."""
     ctrl, dyn = example.make_controller(
         samples=256, horizon=24, backend="pallas-interpret"
     )
     ctrl_scan, _ = example.make_controller(samples=256, horizon=24, backend="scan")
     assert ctrl.rollout_backend == "pallas-interpret"
     for c in (ctrl, ctrl_scan):
-        # testmode for the interpreted kernel (the interpreter stubs the PRNG)
-        if c.rollout_backend != "scan":
-            c = example.MPPIController(
-                c.cfg, c.dynamics, c.cost,
-                rollout_backend="pallas-interpret", testmode=True,
-            )
         x = jnp.asarray([0.0, 0.0, 0.0, 0.0])
         U = c.init_action_seq()
         key = c.init_key()

@@ -49,14 +49,13 @@ def test_episode_jit_composes_with_sharded():
 
 
 def test_episode_jit_composes_with_pallas():
-    """run_episode_jit x pallas backend (two-kernel interpret path, testmode
-    noise): the fused-kernel solve inside the episode scan must bit-agree
-    with the interactive loop using the same backend. (On hardware the real
-    fused kernel composes the same way — tests/_pallas_tpu_check.py.)"""
+    """run_episode_jit x pallas backend (interpreted kernels): the fused
+    solve inside the episode scan must agree with the interactive loop
+    using the same backend. (chip_smoke.py runs --jit-episode on a GPU.)"""
     cfg = load_config(CFG).replace(samples=64)
     n = 4
     mk = lambda: MPPIController(  # noqa: E731
-        cfg, rollout_backend="pallas-interpret", testmode=True
+        cfg, rollout_backend="pallas-interpret"
     )
     res_host = run_closed_loop(mk(), max_steps=n)
     res_jit = run_episode_jit(mk(), num_steps=n)
@@ -126,14 +125,14 @@ def test_fleet_episode_jit_matches_per_robot_episode_jit():
 
 
 def test_fleet_episode_jit_pallas_interpret():
-    """Fleet episode × fleet fused kernel: the two TPU-first modes compose
-    (interpret+testmode on CPU; the real-PRNG path runs on hardware)."""
+    """Fleet episode × fleet fused kernels: the two device-resident modes
+    compose (interpreted here; chip_smoke.py runs the fleet on a GPU)."""
     from mppi_gpu_tpu.batched import BatchedMPPIController
     from mppi_gpu_tpu.runner import run_fleet_episode_jit
 
     cfg = load_config(CFG)
     ctrl = BatchedMPPIController(
-        cfg, 2, rollout_backend="pallas-interpret", testmode=True
+        cfg, 2, rollout_backend="pallas-interpret"
     )
     res = run_fleet_episode_jit(ctrl, num_steps=4)
     assert res.xs.shape[:2] == (5, 2)

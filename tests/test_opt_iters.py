@@ -42,8 +42,7 @@ def test_opt_iters_equals_manual_iteration(backend):
     unshifted sequence fed back and keys folded by iteration index."""
     M = 3
     cfg = make_cfg(opt_iters=M)
-    testmode = backend != "scan"
-    ctrl = MPPIController(cfg, rollout_backend=backend, testmode=testmode)
+    ctrl = MPPIController(cfg, rollout_backend=backend)
     x = jnp.asarray([0.2, -0.1, 0.0, 0.1], jnp.float32)
     U = ctrl.init_action_seq()
     key = jax.random.key(9)
@@ -55,7 +54,6 @@ def test_opt_iters_equals_manual_iteration(backend):
             ctrl.dynamics, ctrl.cost, x, Uc, jax.random.fold_in(key, j),
             ctrl.sigma, ctrl.lambda_, ctrl.max_a,
             K=cfg.samples, clamp=cfg.clamp_action, rollout_backend=backend,
-            testmode=testmode,
         )
         Uc = r.info.u_seq
     np.testing.assert_allclose(
@@ -113,14 +111,14 @@ def test_opt_iters_fleet_scan_matches_single():
 
 
 def test_opt_iters_fleet_pallas_matches_manual():
-    """The fleet fused kernel's iterated path (interpret+testmode) matches
+    """The fleet fused kernels' iterated path (interpreted) matches
     manual iteration of the fleet core via single-iteration fleet solves."""
     from mppi_gpu_tpu.batched import BatchedMPPIController
 
     M, R = 2, 2
     cfg = make_cfg(K=96, T=8, a=2, opt_iters=M)
     fleet = BatchedMPPIController(
-        cfg, R, rollout_backend="pallas-interpret", testmode=True
+        cfg, R, rollout_backend="pallas-interpret"
     )
     xs = jnp.stack([jnp.zeros(4), jnp.full((4,), 0.1)])
     Us = fleet.init_action_seqs()
@@ -129,7 +127,7 @@ def test_opt_iters_fleet_pallas_matches_manual():
 
     fleet1 = BatchedMPPIController(
         cfg.replace(opt_iters=1), R,
-        rollout_backend="pallas-interpret", testmode=True,
+        rollout_backend="pallas-interpret",
     )
     fold_r = jax.vmap(jax.random.fold_in, (0, None))
     Uc = Us

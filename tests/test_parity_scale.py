@@ -8,8 +8,8 @@ prove the NUMERICS at the scale the headline benchmark actually runs at
     float64 oracle across all 10^4 rollouts,
   * the softmin is well-conditioned at a K=10^4 cost spread (eta does not
     underflow to a handful of surviving rollouts, weights are normalized),
-  * the Pallas kernel math (testmode pseudo-noise, interpreted on CPU)
-    agrees with the same float64 oracle at the same scale.
+  * the fused kernels (interpreted on CPU, fed the shared generator's ε)
+    agree with the same float64 oracle at the same scale.
 
 Runtime: ~60 s on CPU — the price of the gate the survey demands.
 """
@@ -23,7 +23,8 @@ import pytest
 
 from mppi_gpu_tpu.controller import mppi_solve_deterministic, sample_noise
 from mppi_gpu_tpu.models.point_mass import PointMassLTI
-from mppi_gpu_tpu.ops import pallas_rollout as pr
+from mppi_gpu_tpu.ops import fused_rollout as fr
+from mppi_gpu_tpu.ops.noise import noise_tensor
 from mppi_gpu_tpu.ops.cost import QuadraticCost
 from mppi_gpu_tpu.ops.rollout import rollout_costs
 from tests.oracle import oracle_solve
@@ -115,51 +116,24 @@ def test_softmin_conditioning_at_scale():
 
 
 @pytest.mark.slow
-def test_pallas_testmode_parity_at_benchmark_scale():
-    """The full Pallas kernel math (group packing, one-hot U extraction,
-    in-register accumulation over T=200, K-padding masking, the weighted
-    update) at K=10^4 vs the float64 oracle — interpreted on CPU with the
-    host-replicable pseudo-noise."""
+def test_fused_parity_at_benchmark_scale():
+    """The fused kernels (in-register accumulation over T=200, K-padding
+    masking, the per-block weighted update) at K=10^4 vs the float64
+    oracle fed the same ε — interpreted on CPU."""
     dyn, cost, x0, U, sigma = _setup()
     key = jax.random.key(2)
-    plan = pr.make_plan(K, T, A, testmode=True)
-    eps = pr.fake_noise_tensor(plan, sigma, key=key)[:, :K, :]
+    plan = fr.plan_for(dyn, cost, K, T, A)
+    eps = noise_tensor(key, T, K, A, sigma)
+    words = fr.robot_words(key[None])
+    rows = fr.pack_rows(dyn, cost, x0[None], sigma, plan)
 
-    S = pr.pallas_rollout_costs(
-        dyn, cost, x0, U, key, sigma, K=K, interpret=True, testmode=True
-    )
+    S = fr.fused_costs(words, U[None], rows, plan, interpret=True)[0]
     S_o, U_new_o, action_o, U_shift_o, w_o, beta_o, eta_o = _oracle(cost, x0, U, eps)
     rel = np.abs(np.asarray(S[:K], np.float64) - S_o) / np.abs(S_o)
     assert rel.max() < 2e-4, f"worst kernel S relative error {rel.max():.2e}"
-    assert np.all(np.asarray(S[K:]) > 1e37)
+    assert np.all(np.isinf(np.asarray(S[K:])))
 
-    w_pad = jnp.zeros((plan.Kpad,)).at[:K].set(jnp.asarray(w_o, jnp.float32))
-    dU = pr.pallas_weighted_update(
-        dyn, cost, x0, U, key, sigma, w_pad, K=K, interpret=True, testmode=True
-    )
+    w_pad = jnp.zeros((1, plan.Kpad)).at[0, :K].set(jnp.asarray(w_o, jnp.float32))
+    dU = fr.fused_update(words, rows, w_pad, plan, interpret=True)[0]
     dU_o = (w_o[None, :, None] * np.asarray(eps, np.float64)).sum(axis=1)
     np.testing.assert_allclose(np.asarray(dU, np.float64), dU_o, rtol=2e-3, atol=2e-5)
-
-
-@pytest.mark.slow
-def test_planar_parity_at_benchmark_scale():
-    """The PLANAR one-pass core (the path `auto` actually runs for the A=3
-    benchmark workload) at K=10^4, T=200 vs the float64 oracle fed the
-    planar host-twin noise — the same envelope the published bench rows sit
-    in, not just the small planar unit tests."""
-    dyn, cost, x0, U, sigma = _setup()
-    key = jax.random.key(2)
-    plan = pr.make_plan(K, T, A, testmode=True)
-    assert plan.planar
-    eps = pr.planar_fake_noise_tensor(plan, sigma, key=key)[:, :K, :]
-
-    lam = jnp.float32(cost.lambda_)
-    Sf, dUf = pr.pallas_fused_solve_core(
-        dyn, cost, x0, U, key, sigma, lam, K=K, testmode=True, interpret=True
-    )
-    S_o, U_new_o, action_o, U_shift_o, w_o, beta_o, eta_o = _oracle(cost, x0, U, eps)
-    rel = np.abs(np.asarray(Sf[:K], np.float64) - S_o) / np.abs(S_o)
-    assert rel.max() < 2e-4, f"worst planar S relative error {rel.max():.2e}"
-    assert np.all(np.asarray(Sf[K:]) > 1e37)
-    dU_o = (w_o[None, :, None] * np.asarray(eps, np.float64)).sum(axis=1)
-    np.testing.assert_allclose(np.asarray(dUf, np.float64), dU_o, rtol=2e-3, atol=2e-5)

@@ -12,13 +12,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mppi_gpu_tpu.config import MPPIConfig
+from mppi_gpu_tpu.config import MPPIConfig, load_config
 from mppi_gpu_tpu.controller import (
     MPPIController,
     mppi_solve_deterministic,
     sample_noise,
 )
+from mppi_gpu_tpu.envs import make_jax_world
 from mppi_gpu_tpu.parallel import ShardedMPPIController, make_mesh, sharded_mppi_solve
+
+CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
 
 
 def make_cfg(K=64, T=10, a=2):
@@ -108,70 +111,55 @@ def test_sharded_rejects_uneven_K(mesh8):
         )
 
 
-@pytest.mark.parametrize(
-    "scenario",
-    [
-        "iid", "anti", "pendulum", "quadrotor", "fleet",
-        # the DEFAULT multi-chip dispatch: one-pass fused core per device +
-        # associative softmin combine, composed under shard_map on a
-        # 2-device mesh (2 because ≥4 interpreter device threads starve the
-        # io_callback pool — see _sharded_pallas_check.py docstring); the
-        # row-packed, antithetic, and planar kernel forms
-        "onepass-iid", "onepass-anti", "onepass-planar", "onepass-unicycle",
-    ],
-)
-@pytest.mark.mesh_subprocess
-def test_sharded_pallas_testmode_matches_oracle(scenario):
-    """The multi-chip Pallas configurations under `shard_map` with real
-    pmin/psum collectives, executed on a virtual mesh via the interpreter in
-    testmode and verified against the single-device deterministic solve fed
-    the exact per-shard pseudo-noise (per-shard key folding → distinct
-    kernel noise streams, K-padding masking per shard).
+SHARDED_SCENARIOS = {
+    # name: (config, devices, antithetic, OU β)
+    "iid-8": ("point_mass2d", 8, False, 0.0),
+    "anti-4": ("point_mass2d", 4, True, 0.0),
+    "ou-2": ("point_mass3d", 2, False, 0.5),
+    "pendulum-8": ("pendulum", 8, False, 0.0),
+    "quadrotor-4": ("quadrotor", 4, False, 0.0),
+    "quadrotor3d-2": ("quadrotor3d", 2, True, 0.3),
+}
 
-    Plain scenarios run the two-kernel fallback on 8 shards (β=pmin /
-    η=psum between kernels A and B, ΔU psum); `onepass-*` scenarios run the
-    DEFAULT sharded dispatch — the single-launch one-pass core per device
-    with the associative softmin combine (controller.pallas_solve) — on a
-    2-device mesh.
 
-    Each scenario runs in its own SUBPROCESS with retries
-    (tests/_sharded_pallas_check.py): jax 0.9.0's Mosaic interpreter can
-    deadlock when 8 shard_map device threads interpret concurrently (its
-    output-store io_callbacks dispatch nested JAX computations — iterating
-    `grid_loop_idx` — which can exhaust the callback pool). The numerics
-    are deterministic; only the scheduling is flaky, so a fresh process
-    retry is sound."""
-    import subprocess
-    import sys
+@pytest.mark.parametrize("scenario", sorted(SHARDED_SCENARIOS))
+def test_sharded_pallas_matches_oracle(scenario):
+    """The two-kernel path under `shard_map` with real pmin/psum on the
+    virtual mesh (interpreted kernels): each device draws its K/n rollouts
+    from fold_in(key, device), so the single-device deterministic solve fed
+    the concatenated per-shard ε from the shared generator is an exact
+    replay (up to the order of the cross-device sums)."""
+    from mppi_gpu_tpu.ops.noise import noise_tensor
 
-    script = os.path.join(os.path.dirname(__file__), "_sharded_pallas_check.py")
-    last = None
-    for _ in range(3):
-        try:
-            out = subprocess.run(
-                [sys.executable, script, scenario],
-                capture_output=True, text=True, timeout=240,
-            )
-        except subprocess.TimeoutExpired:
-            last = "interpreter deadlock (timeout); retried in a fresh process"
-            continue
-        if "SHARDED_PALLAS_OK" in out.stdout:
-            return
-        if out.returncode >= 0:
-            # a Python-level failure (AssertionError, ImportError, shape
-            # errors...) is deterministic — fail immediately with full output
-            raise AssertionError(
-                f"stdout:\n{out.stdout[-2000:]}\nstderr:\n{out.stderr[-2000:]}"
-            )
-        # negative rc = killed by a signal: a hard crash in the CPU thunk
-        # executor while 8 device threads drive the Mosaic interpreter (the
-        # crash variant of the known io_callback instability). Like the
-        # deadlock, a scheduling flake over deterministic numerics — retry
-        last = (
-            f"interpreter crash (signal {-out.returncode}); retried in a "
-            f"fresh process; stderr tail: {out.stderr[-300:]}"
-        )
-    pytest.fail(f"all attempts: {last}")
+    name, n, anti, ou = SHARDED_SCENARIOS[scenario]
+    cfg = load_config(os.path.join(CONFIGS, f"{name}.yaml")).replace(
+        samples=64 * n, horizon=7, antithetic=anti, noise_beta=ou, opt_iters=1)
+    ctrl = ShardedMPPIController(cfg, mesh=make_mesh(n),
+                                 rollout_backend="pallas-interpret")
+    x = make_jax_world(cfg).reset().x
+    U = ctrl.init_action_seq() + 0.1
+    key = jax.random.key(31)
+    res = ctrl.solve(x, U, key)
+
+    k_loc = cfg.samples // n
+    eps = jnp.concatenate([
+        noise_tensor(jax.random.fold_in(key, d), cfg.horizon, k_loc,
+                     cfg.action_dim, ctrl.sigma, antithetic=anti, ou_beta=ou)
+        for d in range(n)
+    ], axis=1)
+    ref = mppi_solve_deterministic(
+        ctrl.dynamics, ctrl.cost, x, U, eps,
+        ctrl.lambda_, ctrl.max_a, clamp=cfg.clamp_action,
+    )
+    np.testing.assert_allclose(
+        np.asarray(res.info.costs), np.asarray(ref.info.costs), rtol=1e-4
+    )
+    # the kernels' small-angle trig carry moves S by ~1e-5 relative
+    # (pendulum), which the softmin passes on to the weights
+    np.testing.assert_allclose(
+        np.asarray(res.info.u_seq), np.asarray(ref.info.u_seq), rtol=1e-4, atol=2e-5
+    )
+    np.testing.assert_allclose(float(res.info.eta), float(ref.info.eta), rtol=1e-3)
 
 
 def test_sharded_nonlinear_family_matches_replay(mesh8):
@@ -227,56 +215,3 @@ def test_sharded_vs_single_distribution():
     a1 = np.asarray(single.solve(x, U, jax.random.key(0)).action)
     a2 = np.asarray(sharded.solve(x, U, jax.random.key(1)).action)
     np.testing.assert_allclose(a1, a2, atol=0.05)
-
-
-def test_sharded_onepass_combine_math_matches_global_softmin():
-    """The sharded ONE-PASS path's cross-device combine (controller.py:
-    β = pmin(β_d), η = psum(f_d·η_d), ΔU = psum(f_d·ΔŨ_d)/η with
-    f_d = exp((β−β_d)/λ)) must equal the global softmin over the union of
-    shards — the associativity that lets each device run the single-launch
-    fused core. Verified here device-free: per-'shard' local quantities
-    from the normalized fused core's own outputs (interpret+testmode),
-    combined in NumPy, against the gathered global softmin + einsum."""
-    from mppi_gpu_tpu.ops import pallas_rollout as pr
-    from mppi_gpu_tpu.ops.softmin import softmin_weights
-    from mppi_gpu_tpu.config import MPPIConfig
-    from mppi_gpu_tpu.controller import MPPIController
-
-    n, k_loc, T, a = 4, 64, 7, 2
-    lam = jnp.float32(0.8)
-    cfg = make_cfg(K=k_loc, T=T, a=a)
-    ctrl = MPPIController(cfg, rollout_backend="scan")
-    dyn, cost = ctrl.dynamics, ctrl.cost
-    x = jnp.asarray([0.2, -0.1, 0.05, 0.0], jnp.float32)
-    U = 0.05 * jnp.ones((T, a), jnp.float32)
-    key = jax.random.key(17)
-    sigma = ctrl.sigma
-
-    plan = pr.make_plan(k_loc, T, a, testmode=True)
-    assert plan.onepass
-    betas, etas, dUs, S_all, eps_all = [], [], [], [], []
-    for d in range(n):
-        kd = jax.random.fold_in(key, d)
-        S, dU, b_l, e_l = pr.pallas_fused_solve_core(
-            dyn, cost, x, U, kd, sigma, lam, K=k_loc,
-            testmode=True, interpret=True, normalize=False,
-        )
-        betas.append(float(b_l)); etas.append(float(e_l)); dUs.append(dU)
-        S_all.append(S[:k_loc])
-        eps_all.append(pr.fake_noise_tensor(plan, sigma, key=kd)[:, :k_loc, :])
-
-    # the combine (what the sharded branch computes with pmin/psum)
-    beta = min(betas)
-    fs = [np.exp((beta - b) / float(lam)) for b in betas]
-    eta = sum(f * e for f, e in zip(fs, etas))
-    dU = sum(f * np.asarray(d) for f, d in zip(fs, dUs)) / eta
-
-    # the global softmin over the union of shards
-    S_glob = jnp.concatenate(S_all)
-    eps_glob = jnp.concatenate(eps_all, axis=1)
-    sm = softmin_weights(S_glob, lam)
-    dU_ref = jnp.einsum("tka,k->ta", eps_glob, sm.weights)
-
-    np.testing.assert_allclose(beta, float(sm.beta), rtol=1e-6)
-    np.testing.assert_allclose(eta, float(sm.eta), rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(dU), np.asarray(dU_ref), rtol=1e-4, atol=1e-6)

@@ -97,7 +97,7 @@ def test_checkpoint_roundtrip():
     np.testing.assert_allclose(np.asarray(world.get_x(s2)), np.asarray(x))
 
 
-# --- fused family (interpret + testmode, the pendulum-family test pattern)
+# --- fused family (kernels in interpret mode vs the scan reference)
 
 
 def _setup_unicycle(T=12, K=300):
@@ -116,45 +116,15 @@ def _setup_unicycle(T=12, K=300):
 
 
 def test_unicycle_fused_family_matches_oracle():
-    """Kernels A/B + the single-launch fused core vs the scan oracle fed the
-    host-twin noise (testmode, interpreted)."""
-    from mppi_gpu_tpu.ops import pallas_rollout as pr
-    from mppi_gpu_tpu.ops.rollout import rollout_costs
-    from mppi_gpu_tpu.ops.softmin import softmin_weights
+    """Kernels A/B vs the scan reference fed the same ε (interpreted)."""
+    from fused_check import check_against_reference
+
+    from mppi_gpu_tpu.ops import fused_rollout as fr
 
     K, T = 300, 12
     dyn, cost, x0, U, sigma = _setup_unicycle(T, K)
-    assert pr.family_for(dyn, cost) == "unicycle"
-    key, lam = jax.random.key(11), jnp.float32(0.7)
-    plan = pr.make_plan(K, T, 2, testmode=True, family="unicycle")
-    eps_ref = pr.fake_noise_tensor(plan, sigma, key=key)
-
-    S = pr.pallas_rollout_costs(
-        dyn, cost, x0, U, key, sigma, K=K, interpret=True, testmode=True
-    )
-    S_oracle = rollout_costs(dyn, cost, x0, U, eps_ref[:, :K, :])
-    np.testing.assert_allclose(np.asarray(S[:K]), np.asarray(S_oracle), rtol=3e-5)
-    assert np.all(np.asarray(S[K:]) > 1e37)
-
-    sm = softmin_weights(S, lam)
-    dU = pr.pallas_weighted_update(
-        dyn, cost, x0, U, key, sigma, sm.weights, K=K, interpret=True, testmode=True
-    )
-    dU_oracle = jnp.einsum("tka,k->ta", eps_ref[:, :K, :], sm.weights[:K])
-    np.testing.assert_allclose(np.asarray(dU), np.asarray(dU_oracle), rtol=2e-4, atol=1e-6)
-
-    # the fused core rides the round-5 STATE-PLANAR plan for this coupled
-    # family — its stream is the planar one, so the oracle noise switches
-    assert plan.planar
-    eps_p = pr.planar_fake_noise_tensor(plan, sigma, key=key)[:, :K, :]
-    Sf, dUf = pr.pallas_fused_solve_core(
-        dyn, cost, x0, U, key, sigma, lam, K=K, testmode=True, interpret=True
-    )
-    Sp_oracle = rollout_costs(dyn, cost, x0, U, eps_p)
-    np.testing.assert_allclose(np.asarray(Sf[:K]), np.asarray(Sp_oracle), rtol=3e-5)
-    smf = softmin_weights(Sf, lam)
-    dUf_oracle = jnp.einsum("tka,k->ta", eps_p, smf.weights[:K])
-    np.testing.assert_allclose(np.asarray(dUf), np.asarray(dUf_oracle), rtol=2e-4, atol=1e-6)
+    assert fr.family_for(dyn, cost) == "unicycle"
+    check_against_reference(dyn, cost, x0, U, sigma, K=K, key=jax.random.key(11))
 
 
 def test_auto_backend_covers_unicycle():
@@ -163,5 +133,5 @@ def test_auto_backend_covers_unicycle():
 
     cfg = load_config(CFG)
     dyn, cost = dynamics_for_config(cfg), make_cost(cfg)
-    assert resolve_backend("auto", dyn, cost, platform="tpu") == "pallas"
+    assert resolve_backend("auto", dyn, cost, platform="gpu") == "pallas"
     assert resolve_backend("auto", dyn, cost, platform="cpu") == "scan"
